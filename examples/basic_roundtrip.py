@@ -7,19 +7,14 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")  # TPU plugins re-register
-
 import numpy as np
 
-import llcomp_tpu
+import llcomp_jax
 
 
 def main() -> None:
     if len(sys.argv) > 1:
-        from llcomp_tpu.io import load_image
+        from llcomp_jax.io import load_image
 
         img = load_image(sys.argv[1])
     else:
@@ -32,14 +27,14 @@ def main() -> None:
         ).astype(np.uint8)
 
     # reference-compatible single stream (bit-exact vs llcompc)
-    blob = llcomp_tpu.compress(img)
-    assert np.array_equal(llcomp_tpu.decompress(blob), img)
+    blob = llcomp_jax.compress(img)
+    assert np.array_equal(llcomp_jax.decompress(blob), img)
     print(f"single stream: {img.nbytes} -> {len(blob)} bytes "
           f"({img.nbytes / len(blob):.2f}x)")
 
-    # sliced container: every stripe an independent stream, TPU-parallel
-    blob_s = llcomp_tpu.compress(img, slices="auto")
-    assert np.array_equal(llcomp_tpu.decompress(blob_s), img)
+    # sliced container: every stripe an independent stream, device-parallel
+    blob_s = llcomp_jax.compress(img, slices="auto")
+    assert np.array_equal(llcomp_jax.decompress(blob_s), img)
     print(f"sliced:        {img.nbytes} -> {len(blob_s)} bytes "
           f"({img.nbytes / len(blob_s):.2f}x)")
 

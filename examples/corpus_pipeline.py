@@ -9,12 +9,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import jax
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    jax.config.update("jax_platforms", "cpu")  # TPU plugins re-register
-
-from llcomp_tpu import corpus, parallel
+from llcomp_jax import corpus, parallel
 
 
 def synth_corpus(n: int = 12):

@@ -4,22 +4,17 @@ Demonstrates the per-slice independence the container was designed for
 (SURVEY §5 fault tolerance): a corrupt stripe costs one stripe, is
 reported instead of raising, and heals with a pure splice.
 
-    JAX_PLATFORMS=cpu python examples/fault_tolerance.py
+    python examples/fault_tolerance.py
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")  # TPU plugins re-register
-
 import numpy as np
 
-import llcomp_tpu
-from llcomp_tpu import api, container
+import llcomp_jax
+from llcomp_jax import api, container
 
 
 def main() -> None:
@@ -31,7 +26,7 @@ def main() -> None:
         0, 255,
     ).astype(np.uint8)
 
-    blob = llcomp_tpu.compress(img, slices="auto")
+    blob = llcomp_jax.compress(img, slices="auto")
     streams, W, H, C, slice_h, flags, seed_blob, _tw = container.unpack_sliced(blob)
     print(f"container: {len(streams)} slices of {slice_h} rows, "
           f"flags={flags:#x} (seeded={bool(flags & container.FLAG_SEEDED)}), "
@@ -47,7 +42,7 @@ def main() -> None:
     broken[start : start + len(streams[3])] = bytes(len(streams[3]))
     broken = bytes(broken)
 
-    out, bad_slices = llcomp_tpu.decompress(broken, strict=False)
+    out, bad_slices = llcomp_jax.decompress(broken, strict=False)
     print(f"non-strict decode: bad slices = {bad_slices}; "
           f"{len(streams) - len(bad_slices)} of {len(streams)} slices exact")
 
@@ -56,7 +51,7 @@ def main() -> None:
         y0, y1 = bounds[i]
         broken = api.reencode_slice(broken, i, img[y0:y1])
     print("healed == original container:", broken == blob)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(broken), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(broken), img)
     print("round-trip exact after repair")
 
 

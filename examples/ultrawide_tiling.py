@@ -1,28 +1,21 @@
 """Ultra-wide images: column tiling (container flag bit 3).
 
-A stripe can never be narrower than the image, and the fused kernels'
-VMEM scales with stripe bytes — so at 8192 px wide even 1-row stripes
-leave the encode kernel at quarter rate.  The auto policy
-(`api.pick_tiling`) cuts such images into column tiles whose stripes
-regain full sublane packing: measured 1.9 → 8.3 MP/s encode on one v5e
-chip for ~2% ratio (docs/DESIGN.md round-5 notes).  This example shows
-the knob and what it does to the container.
+A stripe can never be narrower than the image, so very wide images get
+very thin stripes under the frozen container-shape policy.  The auto
+policy (`api.pick_tiling`) cuts such images into column tiles instead,
+for ~2% ratio (docs/DESIGN.md, "Wide images").  This example shows the
+knob and what it does to the container.
 
-    JAX_PLATFORMS=cpu python examples/ultrawide_tiling.py
+    python examples/ultrawide_tiling.py
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")  # TPU plugins re-register
-
 import numpy as np
 
-from llcomp_tpu import api, container
+from llcomp_jax import api, container
 
 
 def main() -> int:

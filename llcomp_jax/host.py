@@ -1,0 +1,137 @@
+"""NumPy-facing bindings to the native host runtime (see native/llcomp_host.cpp).
+
+Same stream contract as the JAX paths: headerless rev-2 entropy streams;
+containers are applied by ``api``.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from . import dispatch
+from .core import tables
+from .native import load_library
+
+# The hash-bucketed prior rows for primed sliced containers (flag bit 0):
+# the native runtime takes the table by pointer so the format constants
+# live only in core/tables.py.
+_PRIOR = np.ascontiguousarray(tables.PRIOR_TAB, dtype=np.uint8)
+
+
+def _prior_tab(primed: bool, seed=None):
+    """The 121x8 start-state table for this call: the stored seed (flag
+    bit 1), the static prior (flag bit 0), or None (reference zeros).
+    Returns the ARRAY — callers take .ctypes.data while holding the ref."""
+    if seed is not None:
+        return np.ascontiguousarray(seed, dtype=np.uint8)
+    return _PRIOR if primed else None
+
+
+def _ptr(tab):
+    return tab.ctypes.data if tab is not None else None
+
+
+def encode_stream(img: np.ndarray, primed: bool = False,
+                  seed=None) -> bytes:
+    """uint8 [H, W, C] -> headerless rev-2 stream (native scalar encoder)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    H, W, C = img.shape
+    lib = load_library()
+    cap = lib.llct_bound(W, H, C)
+    out = np.empty(cap, dtype=np.uint8)
+    tab = _prior_tab(primed, seed)
+    n = lib.llct_encode_stream(
+        img.ctypes.data, W, H, C, out.ctypes.data, cap, _ptr(tab)
+    )
+    if n == 0:
+        raise ValueError(f"native encode failed for shape {img.shape}")
+    return out[:n].tobytes()
+
+
+def decode_stream(data: bytes, shape: tuple[int, int, int],
+                  primed: bool = False, seed=None) -> np.ndarray:
+    """Headerless rev-2 stream -> uint8 [H, W, C] (native scalar decoder)."""
+    H, W, C = shape
+    buf = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty((H, W, C), dtype=np.uint8)
+    lib = load_library()
+    tab = _prior_tab(primed, seed)
+    rc = lib.llct_decode_stream(
+        buf.ctypes.data if buf.size else None, buf.size, W, H, C,
+        out.ctypes.data, _ptr(tab)
+    )
+    if rc != 0:
+        raise ValueError("corrupt stream (native decoder)")
+    return out
+
+
+def decode_streams(
+    streams: list[bytes], shape: tuple[int, int, int], n_threads: int = 0,
+    primed: bool = False, seed=None,
+) -> np.ndarray:
+    """Multithreaded native decode of equal-geometry streams -> [S, H, W, C].
+
+    The host-side analog of device lane parallelism: each stream decodes on
+    its own worker (default thread count = CPU count).
+    """
+    import ctypes
+    import os
+
+    H, W, C = shape
+    S = len(streams)
+    dispatch.record("decode", "native", S)
+    if n_threads <= 0:
+        n_threads = os.cpu_count() or 1
+    lib = load_library()
+    bufs = [np.frombuffer(s, dtype=np.uint8) for s in streams]
+    out = np.empty((S, H, W, C), dtype=np.uint8)
+    datas = (ctypes.c_void_p * S)(
+        *[b.ctypes.data if b.size else None for b in bufs]
+    )
+    lens = (ctypes.c_size_t * S)(*[b.size for b in bufs])
+    outs = (ctypes.c_void_p * S)(
+        *[out[s].ctypes.data for s in range(S)]
+    )
+    tab = _prior_tab(primed, seed)
+    failures = lib.llct_decode_batch(datas, lens, S, W, H, C, outs,
+                                     n_threads, _ptr(tab))
+    if failures:
+        raise ValueError(f"corrupt stream(s): {failures} of {S} failed")
+    return out
+
+
+def encode_images(imgs: np.ndarray, n_threads: int = 0,
+                  primed: bool = False, seed=None) -> list[bytes]:
+    """Multithreaded native encode of equal-shaped images [S, H, W, C]."""
+    import ctypes
+    import os
+
+    imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
+    S, H, W, C = imgs.shape
+    dispatch.record("encode", "native", S)
+    if n_threads <= 0:
+        n_threads = os.cpu_count() or 1
+    lib = load_library()
+    cap = lib.llct_bound(W, H, C)
+    bufs = np.empty((S, cap), dtype=np.uint8)
+    srcs = (ctypes.c_void_p * S)(*[imgs[s].ctypes.data for s in range(S)])
+    outs = (ctypes.c_void_p * S)(*[bufs[s].ctypes.data for s in range(S)])
+    out_lens = (ctypes.c_size_t * S)()
+    tab = _prior_tab(primed, seed)
+    lib.llct_encode_batch(srcs, S, W, H, C, outs, cap, out_lens, n_threads,
+                          _ptr(tab))
+    if any(out_lens[s] == 0 for s in range(S)):
+        raise ValueError("native batch encode failed")
+    return [bufs[s, : out_lens[s]].tobytes() for s in range(S)]
+
+
+def expand_slots(meta: np.ndarray, runs: np.ndarray) -> bytes:
+    """Native slot-record expansion (alternative to coder.expand_slots)."""
+    meta = np.ascontiguousarray(meta, dtype=np.int32)
+    runs = np.ascontiguousarray(runs, dtype=np.int32)
+    lib = load_library()
+    cap = int(meta.size + runs[meta & 1 == 1].sum()) + 16
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.llct_expand_slots(
+        meta.ctypes.data, runs.ctypes.data, meta.size, out.ctypes.data, cap
+    )
+    return out[:n].tobytes()

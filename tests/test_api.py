@@ -2,42 +2,42 @@
 import numpy as np
 import pytest
 
-import llcomp_tpu
-from llcomp_tpu import api, container, oracle
+import llcomp_jax
+from llcomp_jax import api, container, oracle
 from tests.conftest import make_photo
 
 
 def test_single_stream_matches_reference_format():
     img = make_photo(16, 16)
-    blob = llcomp_tpu.compress(img)
+    blob = llcomp_jax.compress(img)
     assert blob == oracle.encode(img)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
 
 
 def test_sliced_roundtrip_even():
     img = make_photo(32, 16)
-    blob = llcomp_tpu.compress(img, slices=4)
+    blob = llcomp_jax.compress(img, slices=4)
     assert container.is_sliced(blob)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
 
 
 def test_sliced_roundtrip_ragged():
     """Height not divisible by slice count: last stripe is shorter."""
     img = make_photo(37, 16)
-    blob = llcomp_tpu.compress(img, slices=5)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    blob = llcomp_jax.compress(img, slices=5)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
 
 
 def test_sliced_auto():
     img = make_photo(48, 8)
-    blob = llcomp_tpu.compress(img, slices="auto")
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    blob = llcomp_jax.compress(img, slices="auto")
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
 
 
 def test_sliced_streams_are_independent_reference_streams():
     """Each stripe payload is a valid headerless rev-2 stream of that stripe."""
     img = make_photo(24, 16)
-    blob = llcomp_tpu.compress(img, slices=3, primed=False)
+    blob = llcomp_jax.compress(img, slices=3, primed=False)
     streams, W, H, C, slice_h, flags, _seed, _tw = container.unpack_sliced(blob)
     assert (W, H, C, slice_h, len(streams)) == (16, 24, 3, 8, 3)
     assert flags == container.FLAG_CRC  # integrity table on by default
@@ -49,33 +49,33 @@ def test_sliced_streams_are_independent_reference_streams():
 def test_sliced_primed_streams_match_primed_oracle():
     """Primed stripes = oracle encode with the PRIOR_SUB initial model."""
     img = make_photo(24, 16)
-    blob = llcomp_tpu.compress(img, slices=3, primed=True)
+    blob = llcomp_jax.compress(img, slices=3, primed=True)
     streams, W, H, C, slice_h, flags, _seed, _tw = container.unpack_sliced(blob)
     assert flags & container.FLAG_PRIMED
     for i, s in enumerate(streams):
         stripe = img[i * 8 : (i + 1) * 8]
         ref = oracle.encode_planes(oracle.rct_forward(stripe), primed=True)
         assert s == ref
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
 
 
 def test_primed_improves_photo_ratio():
     """The model prior must pay for itself on photo-like content."""
     img = make_photo(64, 64)
-    cold = llcomp_tpu.compress(img, slices="auto", primed=False)
-    primed = llcomp_tpu.compress(img, slices="auto", primed=True)
+    cold = llcomp_jax.compress(img, slices="auto", primed=False)
+    primed = llcomp_jax.compress(img, slices="auto", primed=True)
     assert len(primed) < len(cold)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(primed), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(primed), img)
     # the auto heuristic picks the prior for this content
-    auto = llcomp_tpu.compress(img, slices="auto")
+    auto = llcomp_jax.compress(img, slices="auto")
     assert auto == primed
 
 
 def test_primed_all_decode_engines_agree():
-    from llcomp_tpu import decode as jdec
+    from llcomp_jax import decode as jdec
 
     img = make_photo(16, 16)
-    blob = llcomp_tpu.compress(img, slices=2, primed=True)
+    blob = llcomp_jax.compress(img, slices=2, primed=True)
     streams, W, H, C, slice_h, flags, _seed, _tw = container.unpack_sliced(blob)
     ref = np.stack([img[:8], img[8:]])
     for engine in ("decision", "lockstep", "rowbatch"):
@@ -92,81 +92,73 @@ def test_primed_all_decode_engines_agree():
 
 def test_sliced_size_overhead_bounded():
     img = make_photo(64, 64)
-    single = len(llcomp_tpu.compress(img))
-    sliced = len(llcomp_tpu.compress(img, slices=8))
+    single = len(llcomp_jax.compress(img))
+    sliced = len(llcomp_jax.compress(img, slices=8))
     # per-slice model restart costs ratio; must stay modest on photo-like data
     assert sliced < single * 1.35
 
 
 def test_grayscale_and_2d_input():
     img2d = make_photo(12, 10, c=1)[..., 0]
-    blob = llcomp_tpu.compress(img2d)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob)[..., 0], img2d)
+    blob = llcomp_jax.compress(img2d)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob)[..., 0], img2d)
 
 
 def test_errors():
     with pytest.raises(TypeError):
-        llcomp_tpu.compress(np.zeros((4, 4, 3), np.float32))
+        llcomp_jax.compress(np.zeros((4, 4, 3), np.float32))
     with pytest.raises(ValueError):
-        llcomp_tpu.decompress(b"\x00" * 16)
+        llcomp_jax.decompress(b"\x00" * 16)
     with pytest.raises(ValueError):
         container.pack_single(b"", 70000, 10, 3)  # reference silently truncates
 
 
 def test_oracle_backend():
     img = make_photo(8, 8)
-    blob = llcomp_tpu.compress(img, backend="oracle")
-    assert blob == llcomp_tpu.compress(img)
+    blob = llcomp_jax.compress(img, backend="oracle")
+    assert blob == llcomp_jax.compress(img)
     np.testing.assert_array_equal(
-        llcomp_tpu.decompress(blob, backend="oracle"), img
+        llcomp_jax.decompress(blob, backend="oracle"), img
     )
 
 
 def test_wide_image_slicing_stays_on_kernel_path():
-    """Wide stripes must fit BOTH fused kernels (round-4 fused encode's
-    marker buffer + the decode kernel's line ring) so ultra-wide images
-    stay on the accelerated path instead of a 10x-slower fallback
-    (VERDICT r03 #4).  8192-wide must now produce kernel-fit stripes."""
-    from llcomp_tpu import decode as jdec
-    from llcomp_tpu.pallas import decode_kernel as dk
-    from llcomp_tpu.pallas import encode_fused as ef
-
+    """Wide stripes are clamped to the frozen container-shape budget
+    (api._fits_budget), and among fitting heights the policy takes the
+    tallest at the best group packing — so ultra-wide containers keep
+    their seed-era shapes (and bytes) on every engine."""
     for w in (2048, 3840, 8192, 16384):
         sh = api.pick_slice_height(4096, w, 3)
-        n_sym = sh * w * 3
-        assert ef.fits_fused(n_sym), (w, sh)
-        assert dk.fits_pallas_decode(jdec._bucket_cap(n_sym), w * 3), (w, sh)
-        # round 5: among fitting heights the policy takes the tallest at
-        # the maximal sublane packing — the fused walk advances NSUB*128
-        # lanes per serial step, so NSUB (not height) sets throughput
-        best_nsub = max(
-            ef.pick_geometry(r * w * 3, 8, tuned=False)[0]
-            for r in (1, 2, 4, 8)
-            if ef.fits_fused(r * w * 3, tuned=False))
-        assert ef.pick_geometry(n_sym, 8, tuned=False)[0] == best_nsub, (
-            w, sh)
-    # extreme widths whose ring exceeds VMEM at any height keep min_rows
-    # (api.decompress reroutes those to the native runtime)
+        assert api._fits_budget(sh, w * 3), (w, sh)
+        best = max(api._stripe_packing(r * w * 3) for r in (1, 2, 4, 8)
+                   if api._fits_budget(r, w * 3))
+        assert api._stripe_packing(sh * w * 3) == best, (w, sh)
+    # extreme widths over budget at any height keep min_rows
     assert api.pick_slice_height(64, 60000, 3) == 8
-    # and a wide-but-short image still round-trips (falls back if needed)
+    # and a wide-but-short image still round-trips
     img = make_photo(6, 640, c=3)
-    blob = llcomp_tpu.compress(img, slices=2)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    blob = llcomp_jax.compress(img, slices=2)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
 
 
 def test_oversized_stripe_falls_back_to_xla():
-    from llcomp_tpu import encode as jenc, oracle
+    """A stripe far past every old per-stripe budget (3x5000 RGB: 45,000
+    symbols in one stream) encodes exactly on the XLA engine and on the
+    GPU kernel, which has no budget and needs no fallback."""
+    from llcomp_jax import encode as jenc, oracle
 
-    img = make_photo(3, 5000, c=3)  # n_sym*24 = 1.08M > 2^20
-    out = jenc.encode_lanes(img[None], engine="pallas")
-    assert out[0] == oracle.encode(img)[6:]
+    img = make_photo(3, 5000, c=3)
+    want = oracle.encode(img)[6:]
+    assert jenc.encode_lanes(img[None], engine="xla")[0] == want
+    assert jenc.encode_lanes(img[None], engine="gpu", interpret=True)[0] \
+        == want
 
 
 def test_reencode_slice_heals_corrupt_stripe():
     """Fault-tolerance primitive: re-encoding one stripe restores the exact
     original container (slice independence, SURVEY §5)."""
     img = make_photo(32, 16)
-    blob = llcomp_tpu.compress(img, slices=4)
+    blob = llcomp_jax.compress(img, slices=4)
     streams, W, H, C, slice_h, flags, _seed, _tw = container.unpack_sliced(blob)
     # corrupt slice 2's payload in place
     bad = list(streams)
@@ -176,7 +168,7 @@ def test_reencode_slice_heals_corrupt_stripe():
     y0, y1 = container.slice_bounds(H, slice_h)[2]
     healed = api.reencode_slice(broken, 2, img[y0:y1])
     assert healed == blob
-    np.testing.assert_array_equal(llcomp_tpu.decompress(healed), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(healed), img)
 
 
 def test_seeded_roundtrip_and_oracle_exact():
@@ -184,10 +176,10 @@ def test_seeded_roundtrip_and_oracle_exact():
     every stripe's context row h resets to seed[h % 121]; streams must
     match the oracle encoding with that table, and decode must restore
     the exact image on jax and native backends."""
-    from llcomp_tpu import seed as seedmod
+    from llcomp_jax import seed as seedmod
 
     img = make_photo(32, 16, seed=9)
-    blob = llcomp_tpu.compress(img, slices=4, seeded=True)
+    blob = llcomp_jax.compress(img, slices=4, seeded=True)
     (streams, W, H, C, slice_h, flags, seed_blob,
      _tw) = container.unpack_sliced(blob)
     assert flags & container.FLAG_SEEDED and seed_blob
@@ -197,32 +189,33 @@ def test_seeded_roundtrip_and_oracle_exact():
         stripe = img[i * 8 : (i + 1) * 8]
         assert s == oracle.encode_planes(oracle.rct_forward(stripe),
                                          seed=tab)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
     np.testing.assert_array_equal(
-        llcomp_tpu.decompress(blob, backend="native"), img)
+        llcomp_jax.decompress(blob, backend="native"), img)
     # native encode emits identical containers
-    nblob = llcomp_tpu.compress(img, slices=4, seeded=True, backend="native")
+    nblob = llcomp_jax.compress(img, slices=4, seeded=True, backend="native")
     assert nblob == blob
 
 
 def test_seeded_decode_engines_agree():
-    from llcomp_tpu import decode as jdec, seed as seedmod
+    from llcomp_jax import decode as jdec, seed as seedmod
 
     img = make_photo(16, 16, seed=4)
-    blob = llcomp_tpu.compress(img, slices=2, seeded=True)
+    blob = llcomp_jax.compress(img, slices=2, seeded=True)
     (streams, W, H, C, slice_h, flags, seed_blob,
      _tw) = container.unpack_sliced(blob)
     tab = seedmod.unpack_blob(seed_blob)
     ref = np.stack([img[:8], img[8:]])
-    for engine in ("decision", "lockstep", "rowbatch", "pallas"):
+    for engine in ("decision", "lockstep", "rowbatch", "gpu"):
         out = jdec.decode_lanes(streams, (8, W, C), engine=engine,
-                                primed=True, seed=tab)
+                                primed=True, seed=tab,
+                                interpret=engine == "gpu")
         np.testing.assert_array_equal(out, ref)
 
 
 def test_seeded_reencode_slice_heals():
     img = make_photo(32, 16, seed=11)
-    blob = llcomp_tpu.compress(img, slices=4, seeded=True)
+    blob = llcomp_jax.compress(img, slices=4, seeded=True)
     (streams, W, H, C, slice_h, flags, seed_blob,
      _tw) = container.unpack_sliced(blob)
     bad = list(streams)
@@ -235,25 +228,28 @@ def test_seeded_reencode_slice_heals():
 
 
 def test_auto_backend_routing(monkeypatch):
-    """Workload-aware dispatch (VERDICT r03 #5): on a TPU host, auto
-    routes single-stream and few-lane work to the native runtime (one
-    stream = one lane; a single-lane device scan runs far below the
-    reference), keeps many-lane sliced work on the device engines, and
-    CPU hosts always prefer native."""
+    """Workload-aware dispatch: on a GPU host, auto routes single-stream
+    and few-lane work to the native runtime (one stream = one lane) and
+    keeps many-lane sliced work on the device engines; CPU hosts always
+    prefer native; any other platform raises."""
     import jax
 
-    from llcomp_tpu import api as a
+    from llcomp_jax import api as a
 
     monkeypatch.setattr(a, "_native_available", lambda: True)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert a._resolve_backend("auto", single=True) == "native"
     assert a._resolve_backend("auto", lanes=4) == "native"
     assert a._resolve_backend("auto", lanes=256) == "jax"
+    assert a._resolve_backend("auto", lanes=256, direction="decode") == "jax"
     assert a._resolve_backend("jax", single=True) == "jax"  # explicit wins
     monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
     assert a._resolve_backend("auto", lanes=256) == "native"
     monkeypatch.setattr(a, "_native_available", lambda: False)
     assert a._resolve_backend("auto", single=True) == "jax"
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    with pytest.raises(RuntimeError, match="no encode engine"):
+        a._resolve_backend("auto", lanes=256)
 
 
 def test_single_stream_rejects_primed_and_seeded():
@@ -262,27 +258,27 @@ def test_single_stream_rejects_primed_and_seeded():
     (ADVICE r03: it used to be silently dropped)."""
     img = make_photo(8, 8)
     with pytest.raises(ValueError, match="sliced"):
-        llcomp_tpu.compress(img, seeded=True)
+        llcomp_jax.compress(img, seeded=True)
     with pytest.raises(ValueError, match="sliced"):
-        llcomp_tpu.compress(img, slices=1, primed=True)
+        llcomp_jax.compress(img, slices=1, primed=True)
     # auto (None) stays fine for single-stream
-    llcomp_tpu.compress(img)
+    llcomp_jax.compress(img)
 
 
 def test_seeded_auto_policy():
     """Auto: small images stay unseeded; large photo-like images seed."""
-    small = llcomp_tpu.compress(make_photo(32, 16), slices=4)
+    small = llcomp_jax.compress(make_photo(32, 16), slices=4)
     assert not (container.unpack_sliced(small)[5] & container.FLAG_SEEDED)
-    big = llcomp_tpu.compress(make_photo(256, 256), slices="auto")
+    big = llcomp_jax.compress(make_photo(256, 256), slices="auto")
     assert container.unpack_sliced(big)[5] & container.FLAG_SEEDED
     # and it must pay: seeded no larger than the static prior on photo data
-    unseeded = llcomp_tpu.compress(make_photo(256, 256), slices="auto",
+    unseeded = llcomp_jax.compress(make_photo(256, 256), slices="auto",
                                    seeded=False)
     assert len(big) <= len(unseeded)
 
 
 def test_seed_blob_roundtrip_and_validation():
-    from llcomp_tpu import seed as seedmod
+    from llcomp_jax import seed as seedmod
 
     tab = seedmod.derive(make_photo(64, 64))
     assert tab.shape == (121, 8) and tab.dtype == np.uint8
@@ -298,7 +294,7 @@ def test_decompress_nonstrict_isolates_corrupt_slice():
     from tests.test_native import _malicious_stream
 
     img = make_photo(32, 16)
-    blob = llcomp_tpu.compress(img, slices=4, primed=False)
+    blob = llcomp_jax.compress(img, slices=4, primed=False)
     streams, W, H, C, slice_h, flags, _seed, _tw = container.unpack_sliced(blob)
     bad = list(streams)
     bad[2] = _malicious_stream()  # reliably trips the e>31 guard
@@ -306,9 +302,9 @@ def test_decompress_nonstrict_isolates_corrupt_slice():
 
     # strict (default): the whole decode raises, naming the slice
     with pytest.raises(ValueError, match="2"):
-        llcomp_tpu.decompress(broken)
+        llcomp_jax.decompress(broken)
 
-    out, bad_slices = llcomp_tpu.decompress(broken, strict=False)
+    out, bad_slices = llcomp_jax.decompress(broken, strict=False)
     assert bad_slices == [2]
     bounds = container.slice_bounds(H, slice_h)
     for i, (y0, y1) in enumerate(bounds):
@@ -316,25 +312,25 @@ def test_decompress_nonstrict_isolates_corrupt_slice():
             np.testing.assert_array_equal(out[y0:y1], img[y0:y1])
     y0, y1 = bounds[2]
     healed = api.reencode_slice(broken, 2, img[y0:y1])
-    np.testing.assert_array_equal(llcomp_tpu.decompress(healed), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(healed), img)
 
 
 def test_decompress_nonstrict_clean_container():
     img = make_photo(24, 16)
-    blob = llcomp_tpu.compress(img, slices=3)
-    out, bad_slices = llcomp_tpu.decompress(blob, strict=False)
+    blob = llcomp_jax.compress(img, slices=3)
+    out, bad_slices = llcomp_jax.decompress(blob, strict=False)
     assert bad_slices == []
     np.testing.assert_array_equal(out, img)
     # single-stream containers report slice 0 on corruption
-    single = llcomp_tpu.compress(img)
-    out, bad_slices = llcomp_tpu.decompress(single, strict=False)
+    single = llcomp_jax.compress(img)
+    out, bad_slices = llcomp_jax.decompress(single, strict=False)
     assert bad_slices == []
     np.testing.assert_array_equal(out, img)
 
 
 def test_decode_lanes_report_mode():
     from tests.test_native import _malicious_stream
-    from llcomp_tpu import decode as jdec, encode as jenc
+    from llcomp_jax import decode as jdec, encode as jenc
 
     lanes = np.stack([make_photo(8, 8, seed=60 + i) for i in range(3)])
     streams = jenc.encode_lanes(lanes)
@@ -347,7 +343,7 @@ def test_decode_lanes_report_mode():
 
 def test_reencode_slice_validates_args():
     img = make_photo(32, 16)
-    blob = llcomp_tpu.compress(img, slices=4)
+    blob = llcomp_jax.compress(img, slices=4)
     with pytest.raises(IndexError):
         api.reencode_slice(blob, 9, img[:8])
     with pytest.raises(ValueError):
@@ -377,14 +373,14 @@ def test_primed_container_golden_bytes():
     img[..., 1] += 2
     img[..., 2] += 5
     img = np.ascontiguousarray(img)
-    blob = llcomp_tpu.compress(img, slices=4, primed=True)
+    blob = llcomp_jax.compress(img, slices=4, primed=True)
     assert len(blob) == 1012
     assert (
         hashlib.sha256(blob).hexdigest()
         == hashlib.sha256(bytes.fromhex(PRIMED_GOLDEN_HEX)).hexdigest()
     )
     assert blob == bytes.fromhex(PRIMED_GOLDEN_HEX)
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
 
 
 PRIMED_GOLDEN_HEX = (
@@ -428,7 +424,7 @@ def test_crc_detects_silent_corruption():
     (flag bit 2, on by default) makes detection exact and drives
     strict/non-strict behavior without decoding the bad slice."""
     img = make_photo(32, 16, seed=21)
-    blob = llcomp_tpu.compress(img, slices=4)
+    blob = llcomp_jax.compress(img, slices=4)
     streams, W, H, C, slice_h, flags, _seed, _tw = container.unpack_sliced(blob)
     assert flags & container.FLAG_CRC
     assert container.verify_slices(blob) == []
@@ -439,8 +435,8 @@ def test_crc_detects_silent_corruption():
     broken = bytes(broken)
     assert container.verify_slices(broken) == [1]
     with pytest.raises(ValueError, match="crc"):
-        llcomp_tpu.decompress(broken)
-    out, bad = llcomp_tpu.decompress(broken, strict=False)
+        llcomp_jax.decompress(broken)
+    out, bad = llcomp_jax.decompress(broken, strict=False)
     assert bad == [1]
     bounds = container.slice_bounds(H, slice_h)
     for i, (y0, y1) in enumerate(bounds):
@@ -453,9 +449,9 @@ def test_crc_detects_silent_corruption():
 def test_crc_optional_containers_still_decode():
     """Containers without the crc flag (older files) decode unchanged."""
     img = make_photo(16, 16, seed=5)
-    from llcomp_tpu import api as _api
+    from llcomp_jax import api as _api
 
     streams = _api.encode_stripes(img, container.slice_bounds(16, 8))
     blob = container.pack_sliced(streams, 16, 16, 3, 8, flags=0)
     assert container.verify_slices(blob) is None
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)

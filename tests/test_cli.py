@@ -4,8 +4,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from llcomp_tpu import cli
-from llcomp_tpu.io import load_image, save_image
+from llcomp_jax import cli
+from llcomp_jax.io import load_image, save_image
 from tests.conftest import make_photo
 
 
@@ -87,10 +87,10 @@ def test_corpus_command(tmp_path, capsys):
     assert "verified 3 images bit-exact" in out
     assert (d / "im0.png.llct").exists()
     back = load_image(str(d / "im1.png"))
-    import llcomp_tpu
+    import llcomp_jax
 
     np.testing.assert_array_equal(
-        llcomp_tpu.decompress((d / "im1.png.llct").read_bytes()), back
+        llcomp_jax.decompress((d / "im1.png.llct").read_bytes()), back
     )
 
 

@@ -4,8 +4,8 @@ import pytest
 
 import jax
 
-import llcomp_tpu
-from llcomp_tpu import corpus, parallel
+import llcomp_jax
+from llcomp_jax import corpus, parallel
 from tests.conftest import make_photo
 
 
@@ -31,7 +31,7 @@ def test_corpus_blobs_match_single_image_path():
     imgs = [make_photo(16, 16, seed=10 + i) for i in range(3)]
     blobs, _ = corpus.compress_corpus(imgs, slice_h=8)
     for img, blob in zip(imgs, blobs):
-        assert blob == llcomp_tpu.compress(img, slices=2)
+        assert blob == llcomp_jax.compress(img, slices=2)
 
 
 def test_corpus_batch_cap():
@@ -68,7 +68,7 @@ def test_corpus_seeded_pooled_roundtrip():
     """Large photo corpora auto-seed (flag bit 1) with ONE pooled table
     shared across the batch; containers round-trip and stay independently
     decodable via api.decompress."""
-    from llcomp_tpu import container
+    from llcomp_jax import container
 
     imgs = [make_photo(256, 256, seed=30 + i) for i in range(3)]
     blobs, stats = corpus.compress_corpus(imgs, slice_h=8, backend="native")
@@ -82,5 +82,5 @@ def test_corpus_seeded_pooled_roundtrip():
     for a, b in zip(outs, imgs):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(
-        llcomp_tpu.decompress(blobs[0], backend="native"), imgs[0])
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blobs[1]), imgs[1])
+        llcomp_jax.decompress(blobs[0], backend="native"), imgs[0])
+    np.testing.assert_array_equal(llcomp_jax.decompress(blobs[1]), imgs[1])

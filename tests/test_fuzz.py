@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from llcomp_tpu import decode as jdec
-from llcomp_tpu import encode as jenc
-from llcomp_tpu import oracle
+from llcomp_jax import decode as jdec
+from llcomp_jax import encode as jenc
+from llcomp_jax import oracle
 
 
 @pytest.mark.parametrize("seed", range(10))
@@ -25,12 +25,14 @@ def test_fuzz_roundtrip(seed):
         ).astype(np.uint8)
 
     want = oracle.encode(img)
-    for engine in ("xla", "pallas", "fused"):
-        assert jenc.encode_lanes(img[None], engine=engine)[0] == want[6:], (
-            engine, h, w, c, style
-        )
-    out = jdec.decode_lanes([want[6:]], (h, w, c), engine="decision")
-    np.testing.assert_array_equal(out[0], img)
+    for engine in ("xla", "gpu"):
+        got = jenc.encode_lanes(img[None], engine=engine,
+                                interpret=engine == "gpu")[0]
+        assert got == want[6:], (engine, h, w, c, style)
+    for dec_engine in ("decision", "gpu"):
+        out = jdec.decode_lanes([want[6:]], (h, w, c), engine=dec_engine,
+                                interpret=dec_engine == "gpu")
+        np.testing.assert_array_equal(out[0], img)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -51,10 +53,11 @@ def test_fuzz_roundtrip_primed(seed):
         ).astype(np.uint8)
 
     want = oracle.encode_planes(oracle.rct_forward(img), primed=True)
-    for engine in ("xla", "pallas", "fused"):
-        got = jenc.encode_lanes(img[None], engine=engine, primed=True)[0]
+    for engine in ("xla", "gpu"):
+        got = jenc.encode_lanes(img[None], engine=engine, primed=True,
+                                interpret=engine == "gpu")[0]
         assert got == want, (engine, h, w, c)
-    for dec_engine in ("decision", "lockstep"):
+    for dec_engine in ("decision", "lockstep", "gpu"):
         out = jdec.decode_lanes([want], (h, w, c), engine=dec_engine,
-                                primed=True)
+                                primed=True, interpret=dec_engine == "gpu")
         np.testing.assert_array_equal(out[0], img)

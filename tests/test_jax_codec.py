@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from llcomp_tpu import decode as jdec
-from llcomp_tpu import encode as jenc
-from llcomp_tpu import oracle
+from llcomp_jax import decode as jdec
+from llcomp_jax import encode as jenc
+from llcomp_jax import oracle
 from tests.conftest import make_noise, make_photo
 
 

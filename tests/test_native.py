@@ -9,10 +9,10 @@ pytest.importorskip("ctypes")
 
 @pytest.fixture(scope="module")
 def host():
-    from llcomp_tpu.native.build import NativeBuildError
+    from llcomp_jax.native.build import NativeBuildError
 
     try:
-        from llcomp_tpu import host as h
+        from llcomp_jax import host as h
 
         h.encode_stream(np.zeros((1, 1, 3), np.uint8))  # force build
         return h
@@ -25,7 +25,7 @@ def host():
               (8, 8, 4), (5, 3, 1), (6, 4, 2), (1, 9, 3), (9, 1, 3)]
 )
 def test_native_encode_matches_oracle(host, shape):
-    from llcomp_tpu import oracle
+    from llcomp_jax import oracle
 
     img = make_photo(*shape, seed=sum(shape) * 7)
     assert host.encode_stream(img) == oracle.encode(img)[6:]
@@ -45,7 +45,7 @@ def test_native_golden(host):
 
 
 def test_native_cross_decodes_jax_stream(host):
-    from llcomp_tpu import encode as jenc
+    from llcomp_jax import encode as jenc
 
     img = make_photo(12, 20, seed=5)
     blob = jenc.encode_lanes(img[None])[0]
@@ -54,8 +54,8 @@ def test_native_cross_decodes_jax_stream(host):
 
 def _malicious_stream():
     """Arithmetic-code an unterminated unary exponent (> 31 ones)."""
-    from llcomp_tpu import oracle
-    from llcomp_tpu.core import tables
+    from llcomp_jax import oracle
+    from llcomp_jax.core import tables
 
     enc = oracle.RangeEncoder()
     states = np.zeros(8, dtype=np.uint8)  # hash 0 contexts
@@ -73,7 +73,7 @@ def test_native_corrupt_stream(host):
 
 
 def test_native_expand_slots_matches_python(host):
-    from llcomp_tpu import coder
+    from llcomp_jax import coder
 
     rng = np.random.default_rng(0)
     meta = (
@@ -85,13 +85,13 @@ def test_native_expand_slots_matches_python(host):
 
 
 def test_native_backend_via_api(host):
-    import llcomp_tpu
+    import llcomp_jax
 
     img = make_photo(10, 14)
-    blob = llcomp_tpu.compress(img, backend="native")
-    assert blob == llcomp_tpu.compress(img, backend="oracle")
+    blob = llcomp_jax.compress(img, backend="native")
+    assert blob == llcomp_jax.compress(img, backend="oracle")
     np.testing.assert_array_equal(
-        llcomp_tpu.decompress(blob, backend="native"), img
+        llcomp_jax.decompress(blob, backend="native"), img
     )
 
 
@@ -105,7 +105,7 @@ def test_native_batch_decode(host):
 def test_native_batch_encode(host):
     lanes = np.stack([make_photo(12, 10, seed=50 + i) for i in range(5)])
     streams = host.encode_images(lanes, n_threads=2)
-    from llcomp_tpu import oracle
+    from llcomp_jax import oracle
 
     for i in range(5):
         assert streams[i] == oracle.encode(lanes[i])[6:]
@@ -133,8 +133,8 @@ def test_native_batch_throughput_smoke(host):
 def test_native_sliced_primed_container_matches_jax():
     """backend='native' produces byte-identical sliced (primed) containers
     and decodes them, exercising the prior table through the C ABI."""
-    import llcomp_tpu
-    from llcomp_tpu import api
+    import llcomp_jax
+    from llcomp_jax import api
 
     img = make_photo(24, 16)
     for primed in (False, True):

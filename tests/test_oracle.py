@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from llcomp_tpu import oracle
+from llcomp_jax import oracle
 from tests.conftest import make_noise, make_photo
 
 # Golden vectors: exact bytes emitted by the unmodified reference encoder

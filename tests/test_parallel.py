@@ -4,7 +4,7 @@ import pytest
 
 import jax
 
-from llcomp_tpu import container, oracle, parallel
+from llcomp_jax import container, oracle, parallel
 from tests.conftest import make_photo
 
 
@@ -22,46 +22,48 @@ def test_sharded_encode_matches_unsharded(mesh8):
         assert got[i] == oracle.encode(lanes[i])[6:]
 
 
-def test_sharded_encode_fused_engine(mesh8):
-    """The production pod path (VERDICT r04 #3): the fused Pallas kernel
-    dispatched per device via shard_map (interpret mode on this CPU mesh)
-    must produce the same bytes as the oracle / the XLA-scan shard path,
-    including lane padding to whole per-device kernel groups."""
+def test_sharded_encode_gpu_engine(mesh8):
+    """The GPU kernel dispatched per device via shard_map (Pallas
+    interpreter on this CPU mesh) produces the oracle's bytes, including
+    lane padding to the device count (10 lanes over 8 devices)."""
     lanes = np.stack([make_photo(2, 8, seed=40 + i) for i in range(10)])
-    got = parallel.encode_lanes_sharded(lanes, mesh8, engine="fused")
+    got = parallel.encode_lanes_sharded(lanes, mesh8, engine="gpu",
+                                        interpret=True)
     assert len(got) == 10
     for i in range(10):
         assert got[i] == oracle.encode(lanes[i])[6:]
 
 
-def test_sharded_encode_fused_primed_seeded(mesh8):
-    """Primed + stored-seed prior operands flow through the sharded fused
-    kernel identically to the single-device engine."""
-    from llcomp_tpu import encode as jenc
-    from llcomp_tpu import seed as seedmod
+def test_sharded_encode_gpu_primed_seeded(mesh8):
+    """Primed and stored-seed model rows flow through the sharded GPU
+    kernel identically to the single-device XLA engine."""
+    from llcomp_jax import encode as jenc
+    from llcomp_jax import seed as seedmod
 
     lanes = np.stack([make_photo(2, 8, seed=60 + i) for i in range(3)])
     tab = seedmod.derive(make_photo(16, 16, seed=61))
     for kw in ({"primed": True}, {"seed": tab}):
-        got = parallel.encode_lanes_sharded(lanes, mesh8, engine="fused",
-                                            **kw)
+        got = parallel.encode_lanes_sharded(lanes, mesh8, engine="gpu",
+                                            interpret=True, **kw)
         ref = jenc.encode_lanes(lanes, engine="xla", **kw)
         assert got == ref
 
 
-def test_sharded_encode_fused_overflow_falls_back(mesh8, monkeypatch):
-    """A marker-cap overflow on the sharded fused path must fall back to
-    the scan shard path with identical bytes (auto engine contract)."""
-    monkeypatch.setenv("LLCT_FUSED_MCAP", "32")  # force tiny marker cap
-    lanes = np.stack([make_photo(2, 8, seed=80 + i) for i in range(4)])
-    from llcomp_tpu import encode as jenc
-    from llcomp_tpu import parallel as par
+def test_sharded_decode_gpu_engine(mesh8):
+    """Sharded GPU-kernel decode restores every lane, and a corrupt lane
+    raises like the XLA shard path."""
+    lanes = np.stack([make_photo(2, 8, seed=80 + i) for i in range(9)])
+    streams = [oracle.encode(x)[6:] for x in lanes]
+    out = parallel.decode_lanes_sharded(streams, (2, 8, 3), mesh8,
+                                        engine="gpu", interpret=True)
+    np.testing.assert_array_equal(out, lanes)
+    from tests.test_native import _malicious_stream
 
-    with pytest.raises(jenc.FusedOverflow):
-        par._encode_lanes_sharded_fused(lanes, mesh8, par.REV2, False, None)
-    got = par.encode_lanes_sharded(lanes, mesh8, engine="fused")
-    for i in range(4):
-        assert got[i] == oracle.encode(lanes[i])[6:]
+    bad = list(streams)
+    bad[3] = _malicious_stream()
+    with pytest.raises(ValueError, match="corrupt stream in lanes"):
+        parallel.decode_lanes_sharded(bad, (2, 8, 3), mesh8, engine="gpu",
+                                      interpret=True)
 
 
 def test_sharded_encode_nondivisible_lanes(mesh8):
@@ -85,9 +87,9 @@ def test_sharded_image_roundtrip(mesh8):
     assert container.is_sliced(blob)
     np.testing.assert_array_equal(parallel.decompress_sharded(blob, mesh8), img)
     # the sharded container is identical to the single-device sliced container
-    import llcomp_tpu
+    import llcomp_jax
 
-    assert blob == llcomp_tpu.compress(img, slices=16)
+    assert blob == llcomp_jax.compress(img, slices=16)
 
 
 def test_mesh_sizes(mesh8):
@@ -105,15 +107,15 @@ def test_corpus_explicit_seeded_with_mesh_roundtrips(mesh8):
     mesh=...) must encode WITH the pooled seed table (it used to encode
     with the static prior while packing FLAG_SEEDED + the blob, silently
     corrupting the round trip)."""
-    from llcomp_tpu import container, corpus
-    import llcomp_tpu
+    from llcomp_jax import container, corpus
+    import llcomp_jax
 
     imgs = [make_photo(64, 32, seed=90 + i) for i in range(2)]
     blobs, _ = corpus.compress_corpus(imgs, slice_h=8, mesh=mesh8,
                                       seeded=True)
     for blob, img in zip(blobs, imgs):
         assert container.unpack_sliced(blob)[5] & container.FLAG_SEEDED
-        np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+        np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
     # and the mesh decode path agrees with the stored table
     outs = corpus.decompress_corpus(blobs, mesh=mesh8)
     for out, img in zip(outs, imgs):
@@ -124,7 +126,7 @@ def test_sharded_seeded_container_roundtrip(mesh8):
     """Seeded containers (flag bit 1) now flow through the sharded path:
     compress_sharded auto-seeds large photo images and decompress_sharded
     decodes with the stored table on the mesh."""
-    from llcomp_tpu import container
+    from llcomp_jax import container
 
     img = make_photo(256, 256, seed=77)
     blob = parallel.compress_sharded(img, mesh8)
@@ -133,6 +135,6 @@ def test_sharded_seeded_container_roundtrip(mesh8):
     out = parallel.decompress_sharded(blob, mesh8)
     np.testing.assert_array_equal(out, img)
     # and the single-device decoder agrees
-    import llcomp_tpu
+    import llcomp_jax
 
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)

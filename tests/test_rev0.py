@@ -8,8 +8,8 @@ transcribed from llcomp.js and spot-asserted here).
 import numpy as np
 import pytest
 
-import llcomp_tpu
-from llcomp_tpu import oracle, rev0
+import llcomp_jax
+from llcomp_jax import oracle, rev0
 from tests.conftest import make_noise, make_photo
 
 
@@ -110,11 +110,11 @@ def test_rev0_coder_trace():
 
 def test_api_dispatch():
     img = make_photo(8, 8)
-    blob = llcomp_tpu.compress(img, revision=0)
+    blob = llcomp_jax.compress(img, revision=0)
     assert blob[0] == 0x77
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)
     with pytest.raises(ValueError):
-        llcomp_tpu.compress(img, revision=1)
+        llcomp_jax.compress(img, revision=1)
 
 
 def test_rev0_cross_rejects():

@@ -60,7 +60,7 @@ def asan_oracles(tmp_path_factory):
 def test_asan_reference_clean_and_byte_exact(asan_oracles):
     """Patched reference under ASan: no heap errors on the conformance
     corpus, and bytes equal ours (the patch cannot change emitted bytes)."""
-    from llcomp_tpu import oracle
+    from llcomp_jax import oracle
 
     for img in (make_photo(24, 16, seed=3), make_noise(16, 16, seed=1)):
         h, w, c = img.shape
@@ -77,8 +77,8 @@ def test_asan_pins_reference_overflow_bug(asan_oracles):
     """The UNPATCHED reference heap-overflows on incompressible input
     (SURVEY §2.9) — ASan catches it; our encoder sizes the buffer
     correctly (encode._outcap) and round-trips the same image."""
-    import llcomp_tpu
-    from llcomp_tpu import oracle
+    import llcomp_jax
+    from llcomp_jax import oracle
 
     img = make_noise(32, 32, seed=7)  # expands: compressed > raw
     r = subprocess.run(
@@ -90,4 +90,4 @@ def test_asan_pins_reference_overflow_bug(asan_oracles):
     )
     blob = oracle.encode(img)
     assert len(blob) > img.nbytes  # incompressible indeed
-    np.testing.assert_array_equal(llcomp_tpu.decompress(blob), img)
+    np.testing.assert_array_equal(llcomp_jax.decompress(blob), img)

@@ -1,11 +1,10 @@
 """Column-tiled containers (flag bit 3): policy, format, round-trips.
 
-Tiling exists so images whose WIDTH alone defeats sublane packing (the
-fused encode kernel's NSUB*mcap VMEM scales with stripe bytes and a
-stripe can never be narrower than the image — reference analog: none,
-the reference's scalar raster loop is width-insensitive,
-`llcomp.hpp:390-448`) regain the full-rate kernel configuration: 2048-px
-tiles at 1-row stripes run NSUB8 (docs/DESIGN.md round-5 tables).  The
+Tiling exists so images whose WIDTH alone clamps their stripes under the
+frozen container-shape budget (api._fits_budget; a stripe can never be
+narrower than the image — reference analog: none, the reference's scalar
+raster loop is width-insensitive, `llcomp.hpp:390-448`) regain the best
+group packing: 2048-px tiles at 1-row stripes pack 8 groups.  The
 format side is ``container.FLAG_TILED`` + a tile width field; slices run
 tile-major and each is an ordinary independent rev-2 stream, so every
 engine, the repair splice, and the crc machinery work unchanged.
@@ -15,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-import llcomp_tpu
-from llcomp_tpu import api, container
+import llcomp_jax
+from llcomp_jax import api, container
 
 
 def make_photo(h, w, c=3, seed=0):
@@ -69,27 +68,25 @@ def test_pack_tile_width_validation():
 
 
 def test_pick_tiling_pure_geometry_table():
-    # ultra-wide: tile to the NSUB8 configuration
+    # ultra-wide: tile to the best-packing configuration
     tw, sh = api.pick_tiling(256, 8192, 3)
     assert tw == 2048 and sh == 1
-    # already at max NSUB untiled (2048^2 -> 1-row stripes): no tiling
+    # already at max packing untiled (2048^2 -> 1-row stripes): no tiling
     assert api.pick_tiling(2048, 2048, 3) == (0, 1)
     # ratio-targeted (unclamped) geometries are never tiled
     assert api.pick_tiling(512, 512, 3) == (0, 16)
     assert api.pick_tiling(256, 256, 4) == (0, 8)
     assert api.pick_tiling(256, 2048, 3)[0] == 0
-    # the tiled stripe must beat the untiled NSUB by >= 2x
+    # the tiled stripe must beat the untiled packing by >= 2x
     tw4, sh4 = api.pick_tiling(4096, 4096, 3)
     assert tw4 == 2048 and sh4 == 1
 
 
 def test_pick_tiling_nsub_actually_improves():
-    from llcomp_tpu.pallas import encode_fused as ef
-
     tw, sh = api.pick_tiling(256, 8192, 3)
-    n_tiled = ef.pick_geometry(sh * tw * 3, 8, tuned=False)[0]
+    n_tiled = api._stripe_packing(sh * tw * 3)
     sh_un = api.pick_slice_height(256, 8192, 3)
-    n_un = ef.pick_geometry(sh_un * 8192 * 3, 8, tuned=False)[0]
+    n_un = api._stripe_packing(sh_un * 8192 * 3)
     assert n_tiled >= 2 * n_un
 
 
@@ -180,7 +177,7 @@ def test_tiled_corruption_reports_and_zeroes_region():
 
 
 def test_corpus_decode_mixed_tiled_and_untiled():
-    from llcomp_tpu import corpus
+    from llcomp_jax import corpus
 
     tiled_img = make_photo(48, 96, seed=17)
     plain_img = make_photo(48, 96, seed=18)
@@ -197,7 +194,7 @@ def test_corpus_compress_tiles_ultrawide_members():
     # a mixed corpus: the ultra-wide member gets its own tiled geometry
     # (api.compress policy), the small member keeps the corpus slice_h;
     # both round-trip and the tiled member's container says so
-    from llcomp_tpu import corpus
+    from llcomp_jax import corpus
 
     wide = make_photo(16, 8192, seed=22)
     small = make_photo(32, 64, seed=23)
@@ -218,15 +215,14 @@ def test_corpus_compress_tiles_ultrawide_members():
         corpus.decompress_corpus(blobs0, backend="native")[0], wide)
 
 
-def test_sharded_compress_tiles_like_api(monkeypatch):
+def test_sharded_compress_tiles_like_api():
     # compress_sharded must shape the same tiled container the single-host
     # auto policy shapes (pod determinism), and round-trip through both
     # the sharded and unsharded decoders.  Small ultra-wide geometry so
-    # the CPU-mesh XLA scan stays fast; force the scan engine (the fused
-    # kernel in interpret mode is test-covered in test_parallel).
-    from llcomp_tpu import parallel
+    # the CPU-mesh XLA scan stays fast (the GPU kernel under shard_map is
+    # test-covered in test_parallel).
+    from llcomp_jax import parallel
 
-    monkeypatch.setenv("LLCT_ENCODE_ENGINE", "xla")
     img = make_photo(16, 8192, seed=21)
     tw, sh = api.pick_tiling(16, 8192, 3)
     assert tw == 2048 and sh == 1  # the known-clamped ultra-wide geometry
@@ -244,7 +240,7 @@ def test_sharded_compress_tiles_like_api(monkeypatch):
 
 
 def test_cli_info_reports_tiling(tmp_path, capsys):
-    from llcomp_tpu import cli
+    from llcomp_jax import cli
 
     img = make_photo(48, 96, seed=19)
     blob = api.compress(img, slices="auto", tile_w=40, backend="native")
@@ -258,7 +254,7 @@ def test_cli_info_reports_tiling(tmp_path, capsys):
 def test_cli_compress_tile_flag(tmp_path, capsys):
     from PIL import Image
 
-    from llcomp_tpu import cli
+    from llcomp_jax import cli
 
     img = make_photo(48, 96, seed=24)
     src = tmp_path / "img.png"

@@ -40,9 +40,9 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from llcomp_tpu import oracle  # noqa: E402
-from llcomp_tpu.core import tables  # noqa: E402
-from llcomp_tpu.core.config import REV2 as cfg  # noqa: E402
+from llcomp_jax import oracle  # noqa: E402
+from llcomp_jax.core import tables  # noqa: E402
+from llcomp_jax.core.config import REV2 as cfg  # noqa: E402
 
 
 def make_train(h, w, c, seed, noise, fx, fy):

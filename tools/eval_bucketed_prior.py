@@ -31,18 +31,14 @@ import numpy as np
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench import make_photo  # noqa: E402
-from llcomp_tpu import coder, encode as jenc, oracle  # noqa: E402
-from llcomp_tpu.core import tables, transform  # noqa: E402
-from llcomp_tpu.core.config import REV2 as cfg  # noqa: E402
+from llcomp_jax import coder, encode as jenc, oracle  # noqa: E402
+from llcomp_jax.core import tables, transform  # noqa: E402
+from llcomp_jax.core.config import REV2 as cfg  # noqa: E402
 from tools.derive_prior import make_train  # noqa: E402
 
 SUBS = cfg.substates

@@ -23,16 +23,12 @@ import numpy as np
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench import make_natural, make_photo  # noqa: E402
-from llcomp_tpu import oracle  # noqa: E402
-from llcomp_tpu.core import tables  # noqa: E402
-from llcomp_tpu.core.config import REV2 as cfg  # noqa: E402
+from llcomp_jax import oracle  # noqa: E402
+from llcomp_jax.core import tables  # noqa: E402
+from llcomp_jax.core.config import REV2 as cfg  # noqa: E402
 from tools.eval_bucketed_prior import (  # noqa: E402
     bucketed_counts, encode_mapped, reset_map_from_table,
 )

@@ -3,10 +3,13 @@
 
 Random shapes/content -> oracle bytes must equal the reference encoder's
 bytes AND every engine must agree, plus decode round-trips.  This is the
-suite's conformance axis at 10-20x the per-run seed count (run ad hoc on
-CPU; round 5 ran 150 seeds clean).
+suite's conformance axis at 10-20x the per-run seed count (run ad hoc;
+round 5 ran 150 seeds clean on the CPU).
 
   python tools/fuzz_reference.py [n_seeds] [--ref /tmp/refbuild/ref_oracle]
+                                 [--interpret]
+
+``--interpret`` runs the GPU kernels in the Pallas interpreter (no GPU).
 
 The reference binary is the buffer-size-patched build from
 .claude/skills/verify/SKILL.md (the patch only prevents the reference's
@@ -24,14 +27,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
-from llcomp_tpu import decode as jdec
-from llcomp_tpu import encode as jenc
-from llcomp_tpu import oracle
+from llcomp_jax import decode as jdec
+from llcomp_jax import encode as jenc
+from llcomp_jax import oracle
 
 REF = "/tmp/refbuild/ref_oracle"
+INTERPRET = "--interpret" in sys.argv
 if "--ref" in sys.argv:
     REF = sys.argv[sys.argv.index("--ref") + 1]
 N = int(sys.argv[1]) if len(sys.argv) > 1 and sys.argv[1].isdigit() else 150
@@ -69,11 +70,16 @@ for seed in range(N):
         if c >= 3 and os.path.exists(REF):
             ref = ref_encode(img)
             assert want == ref, "oracle != reference"
-        for engine in ("xla", "fused"):
-            got = jenc.encode_lanes(img[None], engine=engine)[0]
+        for engine in ("xla", "gpu"):
+            interp = INTERPRET and engine == "gpu"
+            got = jenc.encode_lanes(img[None], engine=engine,
+                                    interpret=interp)[0]
             assert got == want[6:], f"engine {engine} mismatch"
-        out = jdec.decode_lanes([want[6:]], (h, w, c), engine="decision")
-        assert np.array_equal(out[0], img), "roundtrip mismatch"
+        for engine in ("decision", "gpu"):
+            interp = INTERPRET and engine == "gpu"
+            out = jdec.decode_lanes([want[6:]], (h, w, c), engine=engine,
+                                    interpret=interp)
+            assert np.array_equal(out[0], img), f"{engine} roundtrip"
     except Exception as e:
         fails += 1
         print(f"FAIL seed={seed} shape={(h, w, c)} style={style}: {e}",
