@@ -12,11 +12,14 @@ taken).  Phases, each checked exactly (the codec is integer end to end):
   ``api.decompress``: 2048x2048x3, 2048x2048x1, 32 x 256x256x4,
   24 x 768x512x3, 256x8192x3 (column-tiled by the auto policy);
 * every container byte-equal to the native runtime's; one stream per
-  geometry byte-equal to ``oracle``; the engine that ran must be the GPU
-  engine (``dispatch.RAN``);
+  geometry byte-equal to ``oracle``; ``backend='auto'`` must run the
+  engine ``dispatch.pick`` names (``dispatch.RAN``), and each geometry
+  also runs on the GPU engine and on native, both timed;
 * the CLI on .ppm files; 1x64 and 64x1 images;
 * a corrupt stripe: exactly the poisoned lane is flagged, every other lane
   stays exact;
+* each kernel's first compile at each geometry, timed, with
+  ``memory_analysis()``;
 * GPU kernels vs the plain XLA engines, end to end, at 1,024 lanes of
   16x512x3 and at 2048x2048x3, compile time apart from run time;
 * the ``gpu``-marked tests, through ``pytest.main`` in this process.
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -122,71 +126,103 @@ def _timed(fn, *args, **kw):
     return out, time.perf_counter() - t0
 
 
-def phase_images(name: str, images: list[np.ndarray]) -> None:
-    """api.compress / api.decompress on the GPU engine, twice (cold, warm),
-    exact against native, the oracle and the input."""
+def _lanes_of(blob: bytes) -> int:
+    from llcomp_jax import container
+
+    return len(container.unpack_sliced(blob)[0])
+
+
+def phase_images(name: str, images: list[np.ndarray], expect: str) -> None:
+    """api.compress / api.decompress with ``backend='auto'``, on the native
+    runtime and on the GPU engine, all byte-equal and exact.  ``auto`` must
+    run ``expect``, the engine ``dispatch.pick`` names for these
+    containers; the GPU engine is timed on its second pass."""
     from llcomp_jax import api, dispatch
 
-    native = [api.compress(im, slices="auto", backend="native")
-              for im in images]
-    row = RESULTS["phases"].setdefault(name, {})
-    for rep in ("cold", "warm"):
+    def run(backend: str):
         dispatch.RAN.clear()
         blobs, t_enc = _timed(
-            lambda: [api.compress(im, slices="auto") for im in images])
-        _expect_engine("encode")
-        outs, t_dec = _timed(lambda: [api.decompress(b) for b in blobs])
-        _expect_engine("decode")
-        row[f"encode_s_{rep}"] = round(t_enc, 4)
-        row[f"decode_s_{rep}"] = round(t_dec, 4)
+            lambda: [api.compress(im, slices="auto", backend=backend)
+                     for im in images])
+        enc = set(_ran("encode"))
+        outs, t_dec = _timed(
+            lambda: [api.decompress(b, backend=backend) for b in blobs])
+        return blobs, outs, t_enc, t_dec, enc, set(_ran("decode"))
+
     px = sum(im.shape[0] * im.shape[1] for im in images)
-    if blobs != native:
-        raise AssertionError("containers differ from the native runtime")
-    for im, out in zip(images, outs):
-        if not np.array_equal(out, im):
-            raise AssertionError("decoded pixels differ from the input")
-    _oracle_check(blobs[0], images[0])
-    lanes = sum(len(api.container.unpack_sliced(b)[0]) for b in blobs)
-    row.update(
-        images=len(images), shape=list(images[0].shape), lanes=lanes,
-        engine="gpu", exact_native=True, exact_oracle=True,
-        encode_compile_s=round(row["encode_s_cold"] - row["encode_s_warm"],
-                               3),
-        decode_compile_s=round(row["decode_s_cold"] - row["decode_s_warm"],
-                               3),
-        encode_mps=round(px / 1e6 / row["encode_s_warm"], 2),
-        decode_mps=round(px / 1e6 / row["decode_s_warm"], 2),
-        ratio=round(sum(im.nbytes for im in images)
-                    / sum(map(len, blobs)), 4))
+    row = RESULTS["phases"].setdefault(name, {})
+    blobs, outs, t_enc, t_dec, enc, dec = run("auto")
+    lanes = _lanes_of(blobs[0])
+    want = {dispatch.pick(d, lanes) for d in ("encode", "decode")}
+    if want != {expect}:
+        raise AssertionError(f"dispatch.pick names {want} for {lanes} "
+                             f"lanes, expected {expect}")
+    if enc != want or dec != want:
+        raise AssertionError(f"auto ran encode {enc}, decode {dec}; "
+                             f"dispatch.pick names {want} for {lanes} lanes")
+    auto = want.pop()
+    times = {"auto": (t_enc, t_dec)}
+    ref = blobs
+    for engine, backend in (("native", "native"), ("gpu", "jax")):
+        if engine == auto == "native":
+            times[engine] = times["auto"]
+            continue
+        if engine == "gpu" and auto != "gpu":
+            run(backend)            # the GPU engine's first pass here
+        blobs, outs, t_enc, t_dec, enc, dec = run(backend)
+        if enc != {engine} or dec != {engine}:
+            raise AssertionError(f"backend={backend!r} ran {enc}, {dec}")
+        times[engine] = (t_enc, t_dec)
+        if blobs != ref:
+            raise AssertionError(f"{engine} containers differ from auto's")
+        for im, out in zip(images, outs):
+            if not np.array_equal(out, im):
+                raise AssertionError(f"{engine}: decoded pixels differ")
+    _oracle_check(ref[0], images[0])
+    row.update(images=len(images), shape=list(images[0].shape),
+               lanes_per_container=lanes, auto_engine=auto,
+               exact_native=True, exact_oracle=True,
+               ratio=round(sum(im.nbytes for im in images)
+                           / sum(map(len, ref)), 4))
+    for engine, (te, td) in times.items():
+        row[engine] = dict(encode_s=round(te, 4), decode_s=round(td, 4),
+                           encode_mps=round(px / 1e6 / te, 2),
+                           decode_mps=round(px / 1e6 / td, 2))
     log(json.dumps({name: row}))
 
 
 def phase_corpus(images: list[np.ndarray]) -> None:
+    """corpus.compress_corpus / decompress_corpus: ``auto`` must put the
+    1,024 stripes on the GPU engine; the native runtime is timed beside
+    it."""
     from llcomp_jax import corpus, dispatch
 
-    native, _ = corpus.compress_corpus(images, slice_h=16, backend="native")
     row = RESULTS["phases"].setdefault("corpus", {})
-    for rep in ("cold", "warm"):
+    (native, _), t_nenc = _timed(corpus.compress_corpus, images, slice_h=16,
+                                 backend="native")
+    nouts, t_ndec = _timed(corpus.decompress_corpus, native,
+                           backend="native")
+    for rep in ("first", "warm"):
         dispatch.RAN.clear()
         (blobs, stats), t_enc = _timed(
             corpus.compress_corpus, images, slice_h=16, backend="auto")
         _expect_engine("encode")
         outs, t_dec = _timed(corpus.decompress_corpus, blobs, backend="auto")
         _expect_engine("decode")
-        row[f"encode_s_{rep}"] = round(t_enc, 4)
-        row[f"decode_s_{rep}"] = round(t_dec, 4)
     if blobs != native:
         raise AssertionError("corpus containers differ from native")
-    for im, out in zip(images, outs):
-        if not np.array_equal(out, im):
+    for im, out, nout in zip(images, outs, nouts):
+        if not (np.array_equal(out, im) and np.array_equal(nout, im)):
             raise AssertionError("corpus pixels differ")
     _oracle_check(blobs[0], images[0])
     px = sum(im.shape[0] * im.shape[1] for im in images)
-    row.update(
-        lanes=stats.lanes, engine="gpu", exact_native=True,
-        exact_oracle=True, ratio=round(stats.ratio, 4),
-        encode_mps=round(px / 1e6 / row["encode_s_warm"], 2),
-        decode_mps=round(px / 1e6 / row["decode_s_warm"], 2))
+    row.update(lanes=stats.lanes, auto_engine="gpu", exact_native=True,
+               exact_oracle=True, ratio=round(stats.ratio, 4))
+    for engine, te, td in (("gpu", t_enc, t_dec), ("native", t_nenc,
+                                                   t_ndec)):
+        row[engine] = dict(encode_s=round(te, 4), decode_s=round(td, 4),
+                           encode_mps=round(px / 1e6 / te, 2),
+                           decode_mps=round(px / 1e6 / td, 2))
     log(json.dumps({"corpus": row}))
 
 
@@ -242,58 +278,91 @@ def phase_corrupt() -> None:
 
 
 def phase_cli() -> None:
-    from llcomp_jax import cli, dispatch
+    """The CLI on .ppm files: a 1536x2048x3 image (1,536 one-row stripes,
+    the GPU engine) and a 512x768x3 one (32 stripes, native on a
+    multi-threaded host); each runs the engine ``dispatch.pick`` names."""
+    from llcomp_jax import api, cli, dispatch
     from llcomp_jax.io.images import load_image, save_image
 
+    ran = []
     with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as d:
         d = pathlib.Path(d)
-        im = photo(512, 768, 3, seed=5)
-        save_image(d / "in.ppm", im)
-        dispatch.RAN.clear()
-        if cli.main(["compress", str(d / "in.ppm"), "--slices", "auto",
-                     "-o", str(d / "in.llct")]):
-            raise AssertionError("cli compress failed")
-        if cli.main(["decompress", str(d / "in.llct"),
-                     "-o", str(d / "out.ppm")]):
-            raise AssertionError("cli decompress failed")
-        _expect_engine("encode")
-        _expect_engine("decode")
-        if not np.array_equal(load_image(d / "out.ppm"), im):
-            raise AssertionError("cli round trip differs")
-    log("cli ok: .ppm compress/decompress on the gpu engine")
+        for k, (h, w) in enumerate(((1536, 2048), (512, 768))):
+            im = photo(h, w, 3, seed=5 + k)
+            src, llct, dst = (d / f"{k}.ppm", d / f"{k}.llct",
+                              d / f"{k}.out.ppm")
+            save_image(src, im)
+            dispatch.RAN.clear()
+            if cli.main(["compress", str(src), "--slices", "auto",
+                         "-o", str(llct)]):
+                raise AssertionError("cli compress failed")
+            if cli.main(["decompress", str(llct), "-o", str(dst)]):
+                raise AssertionError("cli decompress failed")
+            lanes = len(api.container.unpack_sliced(llct.read_bytes())[0])
+            _expect_engine("encode", dispatch.pick("encode", lanes))
+            _expect_engine("decode", dispatch.pick("decode", lanes))
+            if not np.array_equal(load_image(dst), im):
+                raise AssertionError("cli round trip differs")
+            ran.append(f"{h}x{w}x3: {lanes} stripes on "
+                       f"{dispatch.pick('encode', lanes)}")
+    if not ran[0].endswith("gpu"):
+        raise AssertionError(f"the large image ran {ran[0]}")
+    log(f"cli ok: {'; '.join(ran)}")
+
+
+def _compile(jitted, *args, **kw) -> tuple[float, object]:
+    """Seconds to trace, lower and compile ``jitted`` for these arguments
+    (shapes are enough).  Each call site is a shape's first compile in
+    this process; a run that wants cold figures starts with an empty
+    persistent compile cache."""
+    t0 = time.perf_counter()
+    compiled = jitted.lower(*args, **kw).compile()
+    return time.perf_counter() - t0, compiled
 
 
 def phase_kernel_vs_xla(name: str, lanes: np.ndarray) -> None:
     """End-to-end (host uint8 -> host bytes -> host uint8) GPU kernels
-    against the plain XLA engines on the same lanes."""
+    against the plain XLA engines on the same lanes; compile time of the
+    XLA engines measured apart (the kernels' is in the memory phase)."""
+    import jax
+    import jax.numpy as jnp
+
     from llcomp_jax import decode, encode
+    from llcomp_jax.core.config import REV2
 
     row = RESULTS["phases"].setdefault(name, {})
-    shape = lanes.shape[1:]
-    px = lanes.shape[0] * shape[0] * shape[1]
+    S, h, w, c = lanes.shape
+    px = S * h * w
+    cap = encode._bucket(int(np.asarray(encode._count(lanes)).max()))
+    row["xla_encode_compile_s"] = round(_compile(
+        encode._pipeline, jax.ShapeDtypeStruct(lanes.shape, jnp.uint8), cap,
+        REV2, True, None)[0], 3)
     ref = None
     for enc, dec in (("gpu", "gpu"), ("xla", "decision")):
-        s, t_cold = _timed(encode.encode_lanes, lanes, engine=enc,
-                           primed=True)
-        s, t_warm = _timed(encode.encode_lanes, lanes, engine=enc,
-                           primed=True)
+        s, _ = _timed(encode.encode_lanes, lanes, engine=enc, primed=True)
+        s, t_enc = _timed(encode.encode_lanes, lanes, engine=enc,
+                          primed=True)
         ref = ref or s
         if s != ref:
             raise AssertionError(f"{enc} bytes differ")
-        o, d_cold = _timed(decode.decode_lanes, s, shape, engine=dec,
-                           primed=True)
-        o, d_warm = _timed(decode.decode_lanes, s, shape, engine=dec,
-                           primed=True)
+        if dec == "decision":
+            chunk = min(S, 256)             # decode_lanes' XLA lane chunk
+            dcap = decode._bucket_cap(max(map(len, s[:chunk])))
+            row["xla_decode_compile_s"] = round(_compile(
+                decode._decode_scan,
+                jax.ShapeDtypeStruct((chunk, dcap), jnp.uint8), h, w, c,
+                REV2, True, None)[0], 3)
+        o, _ = _timed(decode.decode_lanes, s, (h, w, c), engine=dec,
+                      primed=True)
+        o, t_dec = _timed(decode.decode_lanes, s, (h, w, c), engine=dec,
+                          primed=True)
         if not np.array_equal(o, lanes):
             raise AssertionError(f"{dec} decode differs")
-        row[enc] = dict(
-            encode_run_s=round(t_warm, 4),
-            encode_compile_s=round(t_cold - t_warm, 3),
-            encode_mps=round(px / 1e6 / t_warm, 3),
-            decode_engine=dec, decode_run_s=round(d_warm, 4),
-            decode_compile_s=round(d_cold - d_warm, 3),
-            decode_mps=round(px / 1e6 / d_warm, 3))
-    row.update(lanes=int(lanes.shape[0]), stripe=list(shape),
+        row[enc] = dict(encode_run_s=round(t_enc, 4),
+                        encode_mps=round(px / 1e6 / t_enc, 3),
+                        decode_engine=dec, decode_run_s=round(t_dec, 4),
+                        decode_mps=round(px / 1e6 / t_dec, 3))
+    row.update(lanes=S, stripe=[h, w, c],
                encode_speedup=round(row["xla"]["encode_run_s"]
                                     / row["gpu"]["encode_run_s"], 1),
                decode_speedup=round(row["xla"]["decode_run_s"]
@@ -302,9 +371,10 @@ def phase_kernel_vs_xla(name: str, lanes: np.ndarray) -> None:
 
 
 def phase_memory() -> None:
-    """compiled.memory_analysis() of each kernel at each geometry's lane
-    batch (lanes, stripe rows, width, channels; decode at a stream cap of
-    one byte per symbol, the corpus streams' order of size)."""
+    """First compile of each kernel at each geometry's lane batch (lanes,
+    stripe rows, width, channels): seconds to trace, lower and compile,
+    and ``compiled.memory_analysis()``.  Decode is compiled at a stream
+    cap of one byte per symbol, the corpus streams' order of size."""
     import jax
     import jax.numpy as jnp
 
@@ -312,6 +382,7 @@ def phase_memory() -> None:
     from llcomp_jax.core.config import REV2
 
     row = jnp.asarray(kernels.model_row(REV2, primed=True))
+    out = RESULTS["phases"].setdefault("memory", {})
     for S, h, w, c in ((1024, 16, 512, 3), (2048, 1, 2048, 3),
                        (1024, 2, 2048, 1), (32, 8, 256, 4),
                        (32, 16, 768, 3), (1024, 1, 2048, 3)):
@@ -319,15 +390,17 @@ def phase_memory() -> None:
         imgs = jax.ShapeDtypeStruct((S, h, w, c), jnp.uint8)
         data = jax.ShapeDtypeStruct((S, decode._bucket_cap(n_sym)),
                                     jnp.uint8)
-        for name, lowered in (
-                ("encode", kernels.encode_device.lower(
-                    imgs, row, outcap=encode._outcap(n_sym))),
-                ("decode", kernels.decode_device.lower(data, row, h, w,
-                                                       c))):
-            t0 = time.perf_counter()
-            m = lowered.compile().memory_analysis()
-            log(f"memory {name} {S}x{h}x{w}x{c} "
-                f"(compile {time.perf_counter() - t0:.2f} s): {m}")
+        geom = f"{S}x{h}x{w}x{c}"
+        for name, (secs, compiled) in (
+                ("encode", _compile(kernels.encode_device, imgs, row,
+                                    outcap=encode._outcap(n_sym))),
+                ("decode", _compile(kernels.decode_device, data, row, h, w,
+                                    c))):
+            m = compiled.memory_analysis()
+            out[f"{name}_{geom}"] = dict(
+                compile_s=round(secs, 3),
+                temp_bytes=getattr(m, "temp_size_in_bytes", None))
+            log(f"memory {name} {geom} (compile {secs:.3f} s): {m}")
 
 
 class _Count:
@@ -412,7 +485,9 @@ def main() -> int:
 
     from llcomp_jax import cache
 
-    cache.enable()
+    cache_dir = pathlib.Path(cache.enable()
+                             or os.environ["JAX_COMPILATION_CACHE_DIR"])
+    cached = len(list(cache_dir.iterdir())) if cache_dir.is_dir() else 0
     devs = jax.devices()
     if devs[0].platform != "gpu":
         print(f"no GPU: JAX found {devs[0].platform} devices only",
@@ -425,8 +500,11 @@ def main() -> int:
     card = card_line()
     log(card)
     log(f"device_kind={devs[0].device_kind} count={len(devs)}")
+    log(f"compile cache {cache_dir}: {cached} entries at start")
     RESULTS.update(card=card, device_kind=devs[0].device_kind,
-                   count=len(devs), jax=jax.__version__)
+                   count=len(devs), jax=jax.__version__,
+                   compile_cache_entries_at_start=cached,
+                   host_threads=os.cpu_count())
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     ph = Phases()
     t0 = time.perf_counter()
@@ -437,19 +515,25 @@ def main() -> int:
         count = 4
     else:
         count = 1
+        from llcomp_jax import dispatch
+
+        # builds the native runtime on first use: done before any timing
+        log(f"native runtime available: {dispatch.native_available()}")
         ph.run("memory", phase_memory)
         ph.run("corpus", phase_corpus,
                [photo(512, 512, 3, seed=i) for i in range(32)])
         ph.run("rgb_2048", phase_images, "rgb_2048",
-               [photo(2048, 2048, 3, seed=1)])
+               [photo(2048, 2048, 3, seed=1)], "gpu")
         ph.run("gray_2048", phase_images, "gray_2048",
-               [photo(2048, 2048, 1, seed=2)])
+               [photo(2048, 2048, 1, seed=2)], "gpu")
         ph.run("rgba_256", phase_images, "rgba_256",
-               [photo(256, 256, 4, seed=100 + i) for i in range(32)])
+               [photo(256, 256, 4, seed=100 + i) for i in range(32)],
+               "native")
         ph.run("kodak", phase_images, "kodak",
-               [photo(512, 768, 3, seed=200 + i) for i in range(24)])
+               [photo(512, 768, 3, seed=200 + i) for i in range(24)],
+               "native")
         ph.run("wide_8192", phase_images, "wide_8192",
-               [photo(256, 8192, 3, seed=3)])
+               [photo(256, 8192, 3, seed=3)], "gpu")
         ph.run("edges", phase_edges)
         ph.run("cli", phase_cli)
         ph.run("corrupt", phase_corrupt)

@@ -376,33 +376,18 @@ def _encode_regions(img: np.ndarray, regions, cfg: CodecConfig = REV2,
     for i, (y0, y1, x0, x1) in enumerate(regions):
         by_shape.setdefault((y1 - y0, x1 - x0), []).append(i)
     out: list[bytes | None] = [None] * len(regions)
-    for (rows, cols), idxs in by_shape.items():
-
-        def block(i: int) -> np.ndarray:
-            y0, y1, x0, x1 = regions[i]
-            return img[y0:y1, x0:x1]
-
+    for idxs in by_shape.values():
+        lanes = np.stack([img[y0:y1, x0:x1]
+                          for y0, y1, x0, x1 in (regions[i] for i in idxs)])
         if backend == "native":
             from . import host
 
-            lanes = np.stack([block(i) for i in idxs])
-            for i, blob in zip(idxs, host.encode_images(lanes, primed=primed,
-                                                        seed=seed)):
-                out[i] = blob
-            continue
-        # bound device memory for very large stripes: the encode engines
-        # hold O(n_sym*24) slot records per lane, so cap slots*lanes in
-        # flight (~4 GB at 8 B/slot) and chunk the lane batch if needed
-        n_sym = rows * cols * img.shape[2]
-        chunk = max(1, 500_000_000 // max(1, n_sym * 24))
-        for c0 in range(0, len(idxs), chunk):
-            part = idxs[c0 : c0 + chunk]
-            lanes = np.stack([block(i) for i in part])
-            for i, blob in zip(
-                part, encode.encode_lanes(lanes, cfg, primed=primed,
+            streams = host.encode_images(lanes, primed=primed, seed=seed)
+        else:
+            streams = encode.encode_lanes(lanes, cfg, primed=primed,
                                           seed=seed)
-            ):
-                out[i] = blob
+        for i, blob in zip(idxs, streams):
+            out[i] = blob
     return out  # type: ignore[return-value]
 
 

@@ -144,17 +144,16 @@ def _cmd_selftest(args) -> int:
     ).astype(np.uint8)
     want = oracle.encode(probe)
 
-    import jax
-
+    from . import dispatch
     from . import encode as jenc
 
-    # the GPU kernels exist only on a GPU; the XLA engines run anywhere
-    on_gpu = jax.default_backend() == "gpu"
-    engines = {"jax-xla": lambda: jenc.encode_lanes(probe[None],
-                                                    engine="xla")[0]}
-    if on_gpu:
-        engines["jax-gpu"] = lambda: jenc.encode_lanes(probe[None],
-                                                       engine="gpu")[0]
+    # the XLA engines run anywhere; the platform's device engine besides
+    enc_engines = dict.fromkeys(["xla", dispatch.device_engine("encode")])
+    dec_engines = dict.fromkeys(["decision",
+                                 dispatch.device_engine("decode")])
+    engines = {f"jax-{e}": (lambda e=e: jenc.encode_lanes(probe[None],
+                                                          engine=e)[0])
+               for e in enc_engines}
     try:
         from . import host
 
@@ -169,8 +168,7 @@ def _cmd_selftest(args) -> int:
 
     from . import decode as jdec
 
-    for dec_engine in ("decision", "lockstep") + (("gpu",) if on_gpu
-                                                  else ()):
+    for dec_engine in dec_engines:
         out = jdec.decode_lanes([want[6:]], probe.shape, engine=dec_engine)
         ok = np.array_equal(out[0], probe)
         print(f"{'ok  ' if ok else 'FAIL'} decode engine {dec_engine}")

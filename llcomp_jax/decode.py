@@ -3,7 +3,7 @@
 Decoding is the serial heart of the format: every context hash depends on
 just-reconstructed neighbor samples, and the number of coded decisions per
 symbol is data-dependent (unknown until the unary exponent prefix
-terminates).  Engines, all bit-exact:
+terminates).  Two engines, both bit-exact:
 
 * **gpu** (``kernels.decode_device``): one Pallas/Triton kernel decoding
   one stream per thread, each with its own model in device memory.  The
@@ -20,12 +20,7 @@ terminates).  Engines, all bit-exact:
   lanes are done, so total iterations = max-over-lanes decision count
   (≈ 4.7/symbol on photo-like data) instead of the 24/symbol worst case.
 
-* **symbol-lockstep** (``_decode_impl_lockstep``): one `lax.scan` step per
-  symbol position shared by all lanes, with a fixed 24-iteration inner loop
-  (the provable per-symbol bound, SURVEY §2.4).  Simpler control flow; kept
-  as a second implementation for cross-checking and as the fallback.
-
-The XLA engines use flat 1-D gathers/scatters with absolute offsets.  The
+The XLA engine uses flat 1-D gathers/scatters with absolute offsets.  The
 inverse color transform commutes with reconstruction and is applied
 vectorized at the end (the reference interleaves it per pixel,
 `llcomp.hpp:532-540`).
@@ -34,8 +29,6 @@ Reference semantics: decode loop at `llcomp.hpp:486-545`; getSymbol mirror at
 `llcomp.hpp:219-247`, including the exponent-over-31 corruption guard.
 """
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 
@@ -256,363 +249,8 @@ def _decode_impl(data: jnp.ndarray, H: int, W: int, C: int,
     return planes, err
 
 
-# ===========================================================================
-# Row-batched symbol-lockstep engine
-# ===========================================================================
-
-def _decode_impl_rowbatch(
-    data: jnp.ndarray, H: int, W: int, C: int, cfg: CodecConfig = REV2,
-    primed: bool = False, rstmap=None,
-):
-    """Symbol-synchronous decode with per-symbol row batching.
-
-    All lanes decode the same symbol position each scan step, so the only
-    serialized (per-lane-indexed) operations are three slice transfers per
-    symbol: gather the hash's 8-substate model row, prefetch a 24-byte input
-    window (a symbol consumes at most 24 bytes), and scatter the updated row
-    back.  The 24 decisions unroll into the step body as pure vector ops
-    (sub-state select/update via 8-wide one-hots; probability and transition
-    lookups via 128/256-entry one-hot contractions; byte fetch via 24-wide
-    one-hot over the window).  ~5x fewer serialized elements per pixel than
-    the decision-outer engine.
-    """
-    S, cap = data.shape
-    NS = cfg.num_states
-    stride = W * C
-    d32 = data.astype(jnp.int32)
-    dflat = d32.reshape(-1)
-    data_base = jnp.arange(S) * cap
-    lane_base = jnp.arange(S) * (NS + 8)
-
-    prob_tab = transform.STATE_PROB
-    next_tab = transform.NEXT_STATE
-
-    x_off_t, cur_t, up_t, upup_t, flags_t = _schedule(H, W, C)
-    low0 = (d32[:, 0] << 8) | d32[:, 1]
-
-    gather8_dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(1,), collapsed_slice_dims=(), start_index_map=(0,)
-    )
-
-    def sym_step(carry, xs):
-        states, lines, low, rng, pos, err = carry
-        x_off, cur, up, upup, flags = xs
-        w_pos = (flags & 1) != 0
-        h_pos = (flags & 2) != 0
-        w_gt1 = (flags & 4) != 0
-        w_lt = (flags & 8) != 0
-        h_gt1 = (flags & 16) != 0
-
-        lm1 = jnp.maximum(x_off - C, 0)
-        lm2 = jnp.maximum(x_off - 2 * C, 0)
-        lp1 = jnp.minimum(x_off + C, stride - 1)
-        cur_m1 = _line_at(lines, cur, lm1)
-        up_x = _line_at(lines, up, x_off)
-        l = jnp.where(w_pos, cur_m1, jnp.where(h_pos, up_x, 128))
-        t = jnp.where(h_pos, up_x, l)
-        L = jnp.where(w_gt1, _line_at(lines, cur, lm2), l)
-        tl = jnp.where(h_pos & w_pos, _line_at(lines, up, lm1), t)
-        tr = jnp.where(h_pos & w_lt, _line_at(lines, up, lp1), t)
-        T = jnp.where(h_gt1, _line_at(lines, upup, x_off), t)
-
-        q11, q5 = transform._QUANT11, transform._QUANT5
-        hsh = (
-            _quant_flat(q11, l - tl)
-            + _quant_flat(q11, tl - t) * 11
-            + _quant_flat(q11, t - tr) * 121
-        )
-        if cfg.large_model:
-            hsh = hsh + _quant_flat(q5, L - l) * 605 + _quant_flat(q5, T - t) * 3025
-        predict = jnp.clip(l + t - tl, jnp.minimum(l, t), jnp.maximum(l, t))
-        neg = hsh < 0
-        base = jnp.where(neg, -hsh, hsh) * cfg.substates
-
-        # --- per-symbol slice transfers (the only serialized ops) --------
-        row_start = (lane_base + base)[:, None]
-        rows = jax.lax.gather(
-            states, row_start, gather8_dn, (8,), mode="clip"
-        ).astype(jnp.int32)                                   # [S, 8]
-        pos0 = jnp.minimum(pos, cap - 24)
-        wind = jax.lax.gather(
-            dflat, (data_base + pos0)[:, None], gather8_dn, (24,), mode="clip"
-        )                                                     # [S, 24]
-
-        sub_iota = jax.lax.broadcasted_iota(jnp.int32, (S, 8), 1)
-        w_iota = jax.lax.broadcasted_iota(jnp.int32, (S, 24), 1)
-
-        phase = jnp.full((S,), _ZF, jnp.int32)
-        value = jnp.zeros((S,), jnp.int32)
-        e = jnp.zeros((S,), jnp.int32)
-        ectx = jnp.ones((S,), jnp.int32)
-        mrem = jnp.zeros((S,), jnp.int32)
-        mctx = jnp.full((S,), cfg.e_lim + 1, jnp.int32)
-
-        for _ in range(cfg.max_bins_per_symbol):            # unrolled
-            active = phase != _DONE
-            ctx = jnp.where(phase == _EXP, jnp.minimum(ectx, cfg.e_lim), 0)
-            ctx = jnp.where(phase == _MANT, jnp.minimum(mctx, cfg.r_lim), ctx)
-            ctx = jnp.where(phase == _SIGN, cfg.sign_ctx, ctx)
-
-            oh = (sub_iota == ctx[:, None]).astype(jnp.int32)
-            st = jnp.sum(rows * oh, axis=1)
-            prob = _onehot_lut(prob_tab, st)
-            range1 = (rng * prob) >> 8
-            rng0 = rng - range1
-            bit = (low >= rng0) & active
-            low = jnp.where(bit, low - rng0, low)
-            rng = jnp.where(active, jnp.where(bit, range1, rng0), rng)
-            refill = active & (rng < 0x100)
-            widx = pos - pos0
-            byte = jnp.sum(jnp.where(w_iota == widx[:, None], wind, 0), axis=1)
-            byte = jnp.where(widx < 24, byte, 0)
-            low = jnp.where(refill, (low << 8) | byte, low)
-            rng = jnp.where(refill, rng << 8, rng)
-            pos = jnp.where(refill, pos + 1, pos)
-
-            nst = _onehot_lut(next_tab, st * 2 + bit.astype(jnp.int32))
-            rows = jnp.where((oh == 1) & active[:, None], nst[:, None], rows)
-
-            b = bit.astype(jnp.int32)
-            is_zf = phase == _ZF
-            is_exp = phase == _EXP
-            is_mant = phase == _MANT
-            is_sign = phase == _SIGN
-            value = jnp.where(is_zf & ~bit, 1, value)
-            value = jnp.where(is_zf & bit, 0, value)
-            value = jnp.where(is_mant, 2 * value + b, value)
-            value = jnp.where(is_sign & bit, -value, value)
-            e2 = jnp.where(is_exp & bit, e + 1, e)
-            ectx = jnp.where(is_exp & bit, ectx + 1, ectx)
-            mrem2 = jnp.where(is_exp & ~bit, e2,
-                              jnp.where(is_mant, mrem - 1, mrem))
-            mctx = jnp.where(is_mant, mctx + 1, mctx)
-            phase2 = phase
-            phase2 = jnp.where(is_zf, jnp.where(bit, _DONE, _EXP), phase2)
-            phase2 = jnp.where(is_exp & ~bit, jnp.where(e2 > 0, _MANT, _SIGN), phase2)
-            phase2 = jnp.where(is_mant & (mrem == 1), _SIGN, phase2)
-            phase2 = jnp.where(is_sign, _DONE, phase2)
-            phase = phase2
-            mrem = mrem2
-            e = e2
-
-        err = err | (phase != _DONE)
-
-        scatter_dn = jax.lax.ScatterDimensionNumbers(
-            update_window_dims=(1,), inserted_window_dims=(),
-            scatter_dims_to_operand_dims=(0,),
-        )
-        states = jax.lax.scatter(
-            states, row_start, rows.astype(jnp.uint8), scatter_dn,
-            indices_are_sorted=False, unique_indices=True, mode="clip",
-        )
-
-        diff = jnp.where(neg, -value, value)
-        recon = predict + diff
-        lines = jax.lax.dynamic_update_slice(
-            lines, recon.reshape(S, 1, 1), (0, cur, x_off)
-        )
-        return (states, lines, low, rng, pos, err), recon
-
-    carry0 = (
-        _init_states(S, cfg, primed, 8, rstmap),
-        jnp.zeros((S, 3, stride), jnp.int32),
-        low0,
-        jnp.full((S,), 0xFF00, jnp.int32),
-        jnp.full((S,), 2, jnp.int32),
-        jnp.zeros((S,), bool),
-    )
-    (_, _, _, _, _, err), recon_t = jax.lax.scan(
-        sym_step, carry0, (x_off_t, cur_t, up_t, upup_t, flags_t)
-    )
-    planes = recon_t.T.reshape(S, H, W, C)
-    return planes, err
-
-
-# ===========================================================================
-# Symbol-lockstep engine (cross-check / fallback)
-# ===========================================================================
-
-
-@functools.lru_cache(maxsize=64)
-def _schedule(H: int, W: int, C: int):
-    """Per-symbol-step scalars shared by all lanes: offsets, ring rows, flags."""
-    t = np.arange(H * W * C)
-    i = t % C
-    w = (t // C) % W
-    h = t // (C * W)
-    x_off = w * C + i
-    flags = (
-        (w > 0).astype(np.int32)
-        | ((h > 0).astype(np.int32) << 1)
-        | ((w > 1).astype(np.int32) << 2)
-        | ((w < W - 1).astype(np.int32) << 3)
-        | ((h > 1).astype(np.int32) << 4)
-    )
-    # NumPy (not jnp): this cache is shared across traces, and device arrays
-    # created inside one trace must never leak into another.
-    return (
-        x_off.astype(np.int32),
-        (h % 3).astype(np.int32),
-        ((h + 2) % 3).astype(np.int32),
-        ((h + 1) % 3).astype(np.int32),
-        flags,
-    )
-
-
-def _line_at(lines, row, off):
-    """lines[:, row, off] for traced scalar row/off -> [S]."""
-    S = lines.shape[0]
-    sl = jax.lax.dynamic_slice(lines, (0, row, off), (S, 1, 1))
-    return sl.reshape(S)
-
-
-def _decode_impl_lockstep(
-    data: jnp.ndarray, H: int, W: int, C: int, cfg: CodecConfig = REV2,
-    primed: bool = False, rstmap=None,
-):
-    """data [S, cap] u8 (zero-padded) -> (planes [S, H, W, C] i32, err [S] bool)."""
-    S, cap = data.shape
-    NS = cfg.num_states
-    stride = W * C
-    d32 = data.astype(jnp.int32)
-    dflat = d32.reshape(-1)
-    data_base = jnp.arange(S) * cap
-    lane_base = jnp.arange(S) * (NS + 1)
-
-    x_off_t, cur_t, up_t, upup_t, flags_t = _schedule(H, W, C)
-
-    # RangeDecoder init consumes two bytes (`llcomp.hpp:93-96`).
-    low0 = (d32[:, 0] << 8) | d32[:, 1]
-
-    def read_byte(pos):
-        b = dflat[data_base + jnp.minimum(pos, cap - 1)]
-        return jnp.where(pos < cap, b, 0)  # zero past end, like the reference
-
-    def sym_step(carry, xs):
-        states, lines, low, rng, pos, err = carry
-        x_off, cur, up, upup, flags = xs
-        w_pos = (flags & 1) != 0
-        h_pos = (flags & 2) != 0
-        w_gt1 = (flags & 4) != 0
-        w_lt = (flags & 8) != 0
-        h_gt1 = (flags & 16) != 0
-
-        # -- neighbors from the reconstruction ring buffer ----------------
-        lm1 = jnp.maximum(x_off - C, 0)
-        lm2 = jnp.maximum(x_off - 2 * C, 0)
-        lp1 = jnp.minimum(x_off + C, stride - 1)
-        cur_m1 = _line_at(lines, cur, lm1)
-        up_x = _line_at(lines, up, x_off)
-        l = jnp.where(w_pos, cur_m1, jnp.where(h_pos, up_x, 128))
-        t = jnp.where(h_pos, up_x, l)
-        L = jnp.where(w_gt1, _line_at(lines, cur, lm2), l)
-        tl = jnp.where(h_pos & w_pos, _line_at(lines, up, lm1), t)
-        tr = jnp.where(h_pos & w_lt, _line_at(lines, up, lp1), t)
-        T = jnp.where(h_gt1, _line_at(lines, upup, x_off), t)
-
-        q11, q5 = transform._QUANT11, transform._QUANT5
-        hsh = (
-            _quant_flat(q11, l - tl)
-            + _quant_flat(q11, tl - t) * 11
-            + _quant_flat(q11, t - tr) * 121
-        )
-        if cfg.large_model:
-            hsh = hsh + _quant_flat(q5, L - l) * 605 + _quant_flat(q5, T - t) * 3025
-        predict = jnp.clip(l + t - tl, jnp.minimum(l, t), jnp.maximum(l, t))
-        neg = hsh < 0
-        base = jnp.where(neg, -hsh, hsh) * cfg.substates
-
-        # -- fixed-bound symbol state machine over binary decisions -------
-        def bin_step(_, st8):
-            states, low, rng, pos, phase, value, e, ectx, mrem, mctx = st8
-            active = phase != _DONE
-            ctx = jnp.where(phase == _EXP, jnp.minimum(ectx, cfg.e_lim), 0)
-            ctx = jnp.where(phase == _MANT, jnp.minimum(mctx, cfg.r_lim), ctx)
-            ctx = jnp.where(phase == _SIGN, cfg.sign_ctx, ctx)
-            idx = lane_base + jnp.where(active, base + ctx, NS)
-
-            st = jnp.minimum(states[idx].astype(jnp.int32), 127)
-            prob = transform.STATE_PROB[st]
-            range1 = (rng * prob) >> 8
-            rng0 = rng - range1
-            bit = (low >= rng0) & active
-            low2 = jnp.where(bit, low - rng0, low)
-            rng2 = jnp.where(active, jnp.where(bit, range1, rng0), rng)
-            refill = active & (rng2 < 0x100)
-            byte = read_byte(pos)
-            low3 = jnp.where(refill, (low2 << 8) | byte, low2)
-            rng3 = jnp.where(refill, rng2 << 8, rng2)
-            pos2 = jnp.where(refill, pos + 1, pos)
-
-            nst = transform.NEXT_STATE[st * 2 + bit.astype(jnp.int32)]
-            states = states.at[idx].set(nst.astype(jnp.uint8))
-
-            b = bit.astype(jnp.int32)
-            is_zf = phase == _ZF
-            is_exp = phase == _EXP
-            is_mant = phase == _MANT
-            is_sign = phase == _SIGN
-
-            value = jnp.where(is_zf & ~bit, 1, value)
-            value = jnp.where(is_zf & bit, 0, value)
-            value = jnp.where(is_mant, 2 * value + b, value)
-            value = jnp.where(is_sign & bit, -value, value)
-
-            e2 = jnp.where(is_exp & bit, e + 1, e)
-            ectx2 = jnp.where(is_exp & bit, ectx + 1, ectx)
-            mrem2 = jnp.where(is_exp & ~bit, e2, jnp.where(is_mant, mrem - 1, mrem))
-            mctx2 = jnp.where(is_mant, mctx + 1, mctx)
-
-            phase2 = phase
-            phase2 = jnp.where(is_zf, jnp.where(bit, _DONE, _EXP), phase2)
-            phase2 = jnp.where(
-                is_exp & ~bit, jnp.where(e2 > 0, _MANT, _SIGN), phase2
-            )
-            phase2 = jnp.where(is_mant & (mrem == 1), _SIGN, phase2)
-            phase2 = jnp.where(is_sign, _DONE, phase2)
-            return (states, low3, rng3, pos2, phase2, value, e2, ectx2, mrem2, mctx2)
-
-        init = (
-            states, low, rng, pos,
-            jnp.full((S,), _ZF, jnp.int32), jnp.zeros((S,), jnp.int32),
-            jnp.zeros((S,), jnp.int32), jnp.ones((S,), jnp.int32),
-            jnp.zeros((S,), jnp.int32), jnp.full((S,), cfg.e_lim + 1, jnp.int32),
-        )
-        (states, low, rng, pos, phase, value, *_rest) = jax.lax.fori_loop(
-            0, cfg.max_bins_per_symbol, bin_step, init
-        )
-        err = err | (phase != _DONE)
-        diff = jnp.where(neg, -value, value)
-        recon = predict + diff
-
-        lines = jax.lax.dynamic_update_slice(
-            lines, recon.reshape(S, 1, 1), (0, cur, x_off)
-        )
-        return (states, lines, low, rng, pos, err), recon
-
-    carry0 = (
-        _init_states(S, cfg, primed, 1, rstmap),
-        jnp.zeros((S, 3, stride), jnp.int32),
-        low0,
-        jnp.full((S,), 0xFF00, jnp.int32),
-        jnp.full((S,), 2, jnp.int32),
-        jnp.zeros((S,), bool),
-    )
-    (_, _, _, _, _, err), recon_t = jax.lax.scan(
-        sym_step, carry0, (x_off_t, cur_t, up_t, upup_t, flags_t)
-    )
-    planes = recon_t.T.reshape(S, H, W, C)
-    return planes, err
-
-
 _decode_scan = jax.jit(
     _decode_impl, static_argnames=("H", "W", "C", "cfg", "primed")
-)
-_decode_scan_lockstep = jax.jit(
-    _decode_impl_lockstep, static_argnames=("H", "W", "C", "cfg", "primed")
-)
-_decode_scan_rowbatch = jax.jit(
-    _decode_impl_rowbatch, static_argnames=("H", "W", "C", "cfg", "primed")
 )
 
 
@@ -661,9 +299,8 @@ def decode_lanes(
 ) -> np.ndarray:
     """Decode equal-geometry headerless streams -> images [S, H, W, C] u8.
 
-    engine: 'gpu' (the GPU kernel), 'decision' (while_loop, per-lane
-    pacing), 'lockstep' (fixed 24-step inner loop), 'rowbatch', or 'auto'
-    (the platform's device engine, ``dispatch.device_engine``).
+    engine: 'gpu' (the GPU kernel), 'decision' (the XLA while_loop), or
+    'auto' (the platform's device engine, ``dispatch.device_engine``).
     primed: start context row h at the hash-bucketed prior
     tables.PRIOR_TAB[h % 121] instead of zeros (sliced containers with
     flag bit 0; see tools/derive_prior.py).
@@ -683,7 +320,7 @@ def decode_lanes(
         raise ValueError(f"errors must be 'raise' or 'report', got {errors!r}")
     if engine == "auto":
         engine = dispatch.device_engine("decode")
-    if engine not in ("gpu", "decision", "lockstep", "rowbatch"):
+    if engine not in ("gpu", "decision"):
         raise ValueError(f"unknown decode engine {engine!r}")
     dispatch.record("decode", engine, S)
     if engine == "gpu":
@@ -695,11 +332,6 @@ def decode_lanes(
         # while_loop; all chunks are dispatched before any is synced so
         # the device queue stays full
         MAX_LANES = 256
-        fn = {
-            "decision": _decode_scan,
-            "lockstep": _decode_scan_lockstep,
-            "rowbatch": _decode_scan_rowbatch,
-        }[engine]
         rstmap = (jnp.asarray(tables.prior_full_from(
             seed, cfg.num_states, cfg.substates))
             if seed is not None else None)
@@ -707,8 +339,8 @@ def decode_lanes(
         for i in range(0, S, MAX_LANES):
             chunk = streams[i : i + MAX_LANES]
             cap = _bucket_cap(max((len(s) for s in chunk), default=0))
-            planes, err = fn(jnp.asarray(_pack_streams(chunk, cap)), H, W,
-                             C, cfg, primed, rstmap)
+            planes, err = _decode_scan(jnp.asarray(_pack_streams(chunk, cap)),
+                                       H, W, C, cfg, primed, rstmap)
             inflight.append((i, transform.rct_inverse(planes), err))
         parts, bad = [], []
         for i, imgs, err in inflight:

@@ -10,20 +10,26 @@ Engines (all byte-identical; choosing among them is policy):
 
 Rules for ``backend="auto"``:
 
-* ``gpu``: sliced work goes to the GPU engine; single streams and
-  containers with fewer than ``MIN_DEVICE_LANES`` stripes go to native,
-  since one stream is one lane and a lane-parallel engine cannot fill the
-  card with a handful of them;
+* ``gpu``: containers of at least ``min_device_lanes()`` stripes go to the
+  GPU engine; single streams and smaller containers go to native.  A GPU
+  lane walks its stripe as one serial chain, so the kernel's time follows
+  the symbols per stripe and hardly the stripe count, while the native
+  runtime spreads stripes over every host thread: the GPU finishes first
+  only once each native thread would have many stripes to walk;
 * ``cpu``: native when it builds, else the XLA engines;
 * any other platform raises: no engine here was written or checked for it.
 """
 from __future__ import annotations
 
 import collections
+import os
 
-#: below this many stripes the native runtime takes the work (bytes are
-#: engine-identical, so this is dispatch policy)
-MIN_DEVICE_LANES = 32
+#: stripes per native worker thread from which the GPU engine finishes a
+#: container first, in both directions (bytes are engine-identical, so this
+#: is policy).  Measured with tools/crossover.py on an H100 host with 16
+#: threads: GPU and native break even at 380-530 stripes for stripes of
+#: 6,144 to 36,864 symbols, about 25-33 per thread (PERF.md).
+GPU_LANES_PER_THREAD = 32
 
 _DEVICE_ENGINE = {
     ("gpu", "encode"): "gpu",
@@ -67,6 +73,13 @@ def native_available() -> bool:
         return False
 
 
+def min_device_lanes() -> int:
+    """Stripes from which ``auto`` hands a container to the GPU engine, for
+    the native runtime's thread count on this host (``host``: one per
+    CPU)."""
+    return GPU_LANES_PER_THREAD * (os.cpu_count() or 1)
+
+
 def pick(direction: str, lanes: int, on: str | None = None,
          native: bool | None = None) -> str:
     """Engine for ``backend="auto"`` work of ``lanes`` independent streams
@@ -77,6 +90,6 @@ def pick(direction: str, lanes: int, on: str | None = None,
     engine = device_engine(direction, on)
     if native is None:
         native = native_available()
-    if native and (on == "cpu" or lanes < MIN_DEVICE_LANES):
+    if native and (on == "cpu" or lanes < min_device_lanes()):
         return "native"
     return engine

@@ -13,8 +13,7 @@ Two device engines emit the same bytes:
   so sorting each lane's decisions by context turns the 63 KB/lane model
   into a one-byte-per-lane carry (reset at context-run starts).
   Probabilities then return to stream order and the range-coder scan
-  carries just four scalars per lane.  Also the reference-style
-  model-in-scan variant ``_pipeline_impl_modelscan`` for cross-checking.
+  carries just four scalars per lane.
 
 Reference semantics: encode loop `llcomp.hpp:390-449`, model addressing
 `llcomp.hpp:440-441`, probability/update protocol `llcomp.hpp:439-444`.
@@ -150,48 +149,7 @@ def _pipeline_impl(imgs: jnp.ndarray, cap: int, cfg: CodecConfig = REV2,
     return meta, runs
 
 
-def _pipeline_impl_modelscan(imgs: jnp.ndarray, cap: int,
-                             cfg: CodecConfig = REV2, primed: bool = False):
-    """Cross-check variant: adaptive model carried through the scan."""
-    S = imgs.shape[0]
-    compact = _compact_decisions(imgs, cap, cfg)
-
-    NS = cfg.num_states
-    if primed:                                           # +1 trash slot/lane
-        row = np.concatenate([
-            tables.prior_full(NS, cfg.substates),
-            np.zeros((1,), np.uint8),
-        ])
-        states0 = jnp.asarray(np.tile(row, S))
-    else:
-        states0 = jnp.zeros((S * (NS + 1),), jnp.uint8)
-    lane_base = jnp.arange(S) * (NS + 1)
-
-    def step(carry, xs):
-        states, cod = carry
-        p = xs
-        valid_s = p >= 0
-        ci = lane_base + jnp.where(valid_s, p >> 1, NS)
-        b = p & 1
-        st = jnp.minimum(states[ci].astype(jnp.int32), 127)
-        prob = transform.STATE_PROB[st]
-        cod, slot = coder.put_step(cod, (prob, b, valid_s))
-        ns = transform.NEXT_STATE[st * 2 + b].astype(jnp.uint8)
-        states = states.at[ci].set(ns)
-        return (states, cod), slot
-
-    cod0 = coder.encoder_init(S)
-    (_, cod), (meta, runs) = jax.lax.scan(step, (states0, cod0), compact.T)
-    fmeta, fruns = coder.finish_steps(cod)
-    meta = jnp.concatenate([meta, fmeta])
-    runs = jnp.concatenate([runs, fruns])
-    return meta, runs
-
-
 _pipeline = jax.jit(_pipeline_impl, static_argnames=("cap", "cfg", "primed"))
-_pipeline_modelscan = jax.jit(
-    _pipeline_impl_modelscan, static_argnames=("cap", "cfg", "primed")
-)
 
 
 def _outcap(n_sym: int) -> int:
@@ -202,14 +160,22 @@ def _outcap(n_sym: int) -> int:
 #: device bytes the GPU engine may hold per call; larger lane batches are
 #: encoded in chunks of whole programs
 GPU_BATCH_BYTES = 4 << 30
+#: the same bound for the XLA engine, whose sort and scans hold about 24
+#: bytes per symbol per lane
+XLA_BATCH_BYTES = 500_000_000
 
 
-def _lane_chunks(S: int, per_lane: int) -> list[tuple[int, int]]:
-    from . import kernels
+def _lane_chunks(S: int, per_lane: int, budget: int | None = None,
+                 quantum: int | None = None) -> list[tuple[int, int]]:
+    """Lane ranges of at most ``budget`` bytes (default: the GPU engine's)
+    at ``per_lane`` bytes each, in multiples of ``quantum`` lanes (default:
+    one GPU program)."""
+    if quantum is None:
+        from . import kernels
 
-    chunk = max(kernels.LANES,
-                GPU_BATCH_BYTES // max(1, per_lane)
-                // kernels.LANES * kernels.LANES)
+        quantum = kernels.LANES
+    budget = GPU_BATCH_BYTES if budget is None else budget
+    chunk = max(quantum, budget // max(1, per_lane) // quantum * quantum)
     return [(i, min(S, i + chunk)) for i in range(0, S, chunk)]
 
 
@@ -242,6 +208,17 @@ def _encode_lanes_gpu(imgs: np.ndarray, cfg: CodecConfig, primed: bool,
     return out
 
 
+def _encode_lanes_xla(imgs: np.ndarray, cfg: CodecConfig, primed: bool,
+                      seed) -> list[bytes]:
+    counts = np.asarray(_count(imgs, cfg))
+    cap = _bucket(int(counts.max()))
+    rstmap = (jnp.asarray(tables.prior_full_from(seed, cfg.num_states,
+                                                 cfg.substates))
+              if seed is not None else None)
+    meta, runs = _pipeline(imgs, cap, cfg, primed, rstmap)
+    return coder.expand_slots_batch(np.asarray(meta), np.asarray(runs))
+
+
 def encode_lanes(
     imgs: np.ndarray, cfg: CodecConfig = REV2, engine: str = "auto",
     primed: bool = False, seed=None, interpret: bool = False,
@@ -269,10 +246,8 @@ def encode_lanes(
     dispatch.record("encode", engine, imgs.shape[0])
     if engine == "gpu":
         return _encode_lanes_gpu(imgs, cfg, primed, seed, interpret)
-    counts = np.asarray(_count(imgs, cfg))
-    cap = _bucket(int(counts.max()))
-    rstmap = (jnp.asarray(tables.prior_full_from(seed, cfg.num_states,
-                                                 cfg.substates))
-              if seed is not None else None)
-    meta, runs = _pipeline(imgs, cap, cfg, primed, rstmap)
-    return coder.expand_slots_batch(np.asarray(meta), np.asarray(runs))
+    n_sym = int(np.prod(imgs.shape[1:]))
+    out: list[bytes] = []
+    for a, b in _lane_chunks(imgs.shape[0], 24 * n_sym, XLA_BATCH_BYTES, 1):
+        out.extend(_encode_lanes_xla(imgs[a:b], cfg, primed, seed))
+    return out

@@ -78,13 +78,14 @@ def test_primed_all_decode_engines_agree():
     blob = llcomp_jax.compress(img, slices=2, primed=True)
     streams, W, H, C, slice_h, flags, _seed, _tw = container.unpack_sliced(blob)
     ref = np.stack([img[:8], img[8:]])
-    for engine in ("decision", "lockstep", "rowbatch"):
-        out = jdec.decode_lanes(streams, (8, W, C), engine=engine, primed=True)
+    for engine in ("decision", "gpu"):
+        out = jdec.decode_lanes(streams, (8, W, C), engine=engine, primed=True,
+                                interpret=engine == "gpu")
         np.testing.assert_array_equal(out, ref)
     # an unprimed decode of primed streams must NOT round-trip silently:
     # either a corruption error or wrong pixels
     try:
-        wrong = jdec.decode_lanes(streams, (8, W, C), engine="lockstep")
+        wrong = jdec.decode_lanes(streams, (8, W, C), engine="decision")
         assert not np.array_equal(wrong, ref)
     except ValueError:
         pass
@@ -206,7 +207,7 @@ def test_seeded_decode_engines_agree():
      _tw) = container.unpack_sliced(blob)
     tab = seedmod.unpack_blob(seed_blob)
     ref = np.stack([img[:8], img[8:]])
-    for engine in ("decision", "lockstep", "rowbatch", "gpu"):
+    for engine in ("decision", "gpu"):
         out = jdec.decode_lanes(streams, (8, W, C), engine=engine,
                                 primed=True, seed=tab,
                                 interpret=engine == "gpu")
@@ -234,14 +235,16 @@ def test_auto_backend_routing(monkeypatch):
     prefer native; any other platform raises."""
     import jax
 
-    from llcomp_jax import api as a
+    from llcomp_jax import api as a, dispatch
 
+    many = dispatch.min_device_lanes()
     monkeypatch.setattr(a, "_native_available", lambda: True)
     monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert a._resolve_backend("auto", single=True) == "native"
     assert a._resolve_backend("auto", lanes=4) == "native"
-    assert a._resolve_backend("auto", lanes=256) == "jax"
-    assert a._resolve_backend("auto", lanes=256, direction="decode") == "jax"
+    assert a._resolve_backend("auto", lanes=many - 1) == "native"
+    assert a._resolve_backend("auto", lanes=many) == "jax"
+    assert a._resolve_backend("auto", lanes=many, direction="decode") == "jax"
     assert a._resolve_backend("jax", single=True) == "jax"  # explicit wins
     monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
     assert a._resolve_backend("auto", lanes=256) == "native"

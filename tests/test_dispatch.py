@@ -5,18 +5,52 @@ import jax
 
 from llcomp_jax import cache, dispatch
 
-_LANES = [1, dispatch.MIN_DEVICE_LANES - 1, dispatch.MIN_DEVICE_LANES, 1024]
+_THREADS = 16
+_EDGE = dispatch.GPU_LANES_PER_THREAD * _THREADS
+_LANES = [1, _EDGE - 1, _EDGE, 4 * _EDGE]
+
+
+@pytest.fixture
+def host_threads(monkeypatch):
+    """Pin the host's CPU count, which sets the native runtime's threads."""
+    import os
+
+    def pin(n):
+        monkeypatch.setattr(os, "cpu_count", lambda: n)
+    pin(_THREADS)
+    return pin
 
 
 @pytest.mark.parametrize("direction", ["encode", "decode"])
 @pytest.mark.parametrize("lanes", _LANES)
 @pytest.mark.parametrize("on", ["gpu", "cpu"])
-def test_pick_with_native(on, lanes, direction):
+def test_pick_with_native(on, lanes, direction, host_threads):
     got = dispatch.pick(direction, lanes, on=on, native=True)
-    if on == "gpu" and lanes >= dispatch.MIN_DEVICE_LANES:
+    if on == "gpu" and lanes >= _EDGE:
         assert got == "gpu"
     else:
         assert got == "native"
+
+
+@pytest.mark.parametrize("threads", [1, 4, 16, 64])
+def test_crossover_scales_with_host_threads(threads, host_threads):
+    """The GPU takes a container once every native thread would walk
+    ``GPU_LANES_PER_THREAD`` stripes; a 32-stripe container (one 768x512
+    image) stays native on any multi-threaded host."""
+    host_threads(threads)
+    edge = dispatch.min_device_lanes()
+    assert edge == dispatch.GPU_LANES_PER_THREAD * threads
+    assert dispatch.pick("decode", edge - 1, on="gpu",
+                         native=True) == "native"
+    assert dispatch.pick("decode", edge, on="gpu", native=True) == "gpu"
+    if threads > 1:
+        assert dispatch.pick("encode", 32, on="gpu",
+                             native=True) == "native"
+
+
+def test_crossover_unknown_cpu_count(host_threads):
+    host_threads(None)
+    assert dispatch.min_device_lanes() == dispatch.GPU_LANES_PER_THREAD
 
 
 @pytest.mark.parametrize("direction", ["encode", "decode"])
@@ -48,7 +82,8 @@ def test_default_platform_picks_engine(monkeypatch):
     """With no platform given, the default JAX backend decides."""
     monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert dispatch.device_engine("decode") == "gpu"
-    assert dispatch.pick("encode", 64, native=True) == "gpu"
+    assert dispatch.pick("encode", dispatch.min_device_lanes(),
+                         native=True) == "gpu"
 
 
 def test_ran_records_the_engine():

@@ -98,16 +98,15 @@ def test_decode_reference_stream(ref_oracle):
 
 
 def test_decode_engines_agree():
-    """decision-outer and symbol-lockstep engines produce identical output."""
+    """The XLA decision-outer engine and the GPU kernel (interpreted)
+    produce identical output."""
     lanes = [make_photo(8, 16, seed=50 + i) for i in range(3)] + [
         make_noise(8, 16, seed=1), np.full((8, 16, 3), 9, np.uint8)
     ]
     streams = [oracle.encode(l)[6:] for l in lanes]
     a = jdec.decode_lanes(streams, (8, 16, 3), engine="decision")
-    b = jdec.decode_lanes(streams, (8, 16, 3), engine="lockstep")
-    c = jdec.decode_lanes(streams, (8, 16, 3), engine="rowbatch")
+    b = jdec.decode_lanes(streams, (8, 16, 3), engine="gpu", interpret=True)
     np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(a, c)
     np.testing.assert_array_equal(a, np.stack(lanes))
 
 
@@ -115,18 +114,21 @@ def test_decode_malicious_exponent_raises():
     """A stream coding >31 exponent ones must raise, like the reference."""
     from tests.test_native import _malicious_stream
 
-    for engine in ("decision", "lockstep", "rowbatch"):
+    for engine in ("decision", "gpu"):
         with pytest.raises(ValueError):
-            jdec.decode_lanes([_malicious_stream()], (4, 4, 3), engine=engine)
+            jdec.decode_lanes([_malicious_stream()], (4, 4, 3), engine=engine,
+                              interpret=engine == "gpu")
 
 
 def test_encode_pipelines_agree():
-    """Model-free (sort + segmented walk) vs model-in-scan: identical slots."""
+    """Model-free XLA engine (sort + segmented walk) vs the GPU kernel,
+    which carries each lane's model through the walk: identical bytes,
+    plain and primed."""
     lanes = np.stack(
         [make_photo(8, 16, seed=70 + i) for i in range(2)] + [make_noise(8, 16)]
     )
-    cap = jenc._bucket(int(np.asarray(jenc._count(lanes)).max()))
-    a = jenc._pipeline(lanes, cap)
-    b = jenc._pipeline_modelscan(lanes, cap)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
+    for primed in (False, True):
+        a = jenc.encode_lanes(lanes, engine="xla", primed=primed)
+        b = jenc.encode_lanes(lanes, engine="gpu", primed=primed,
+                              interpret=True)
+        assert a == b
